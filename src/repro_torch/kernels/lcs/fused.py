@@ -1,0 +1,224 @@
+"""Fused gather-and-score: code tables + pair indices -> (level_lcs, MSS).
+
+Port of ``repro/kernels/lcs/fused.py``.  Exact pair scoring is the hot path
+of the pipeline: for every candidate pair (l, r), the LCS of the two
+trajectories' encodings at every semantic level, beta-combined into the MSS
+(paper section IV.3).  The gather path (``score_pairs`` ->
+``multi_level_lcs``) first builds two full ``[P, H, L]`` gathered copies;
+the fused scorer reads each pair's rows straight out of the resident table
+instead, masks positions ``>= length`` to the side sentinels itself, runs
+all H levels, and emits ``level_lcs [P, H]`` and ``mss [P]`` in one pass.
+
+* :func:`fused_gather_score` — the raw call: the Hopper kernel
+  ``kernels/csrc/fused_score.cu`` on a CUDA tensor (its header notes the
+  bound and the design), the plain version on a CPU tensor.  Every launch
+  adds one to ``fused_gather_score.launches``.
+* :func:`fused_gather_score_plain` — the plain PyTorch version: the TPU
+  kernel's ``_masked_rows_lcs`` rolling-window wavefront as written,
+  batched over pairs, with the kernel's FMA-chain epilogue.
+* :func:`fused_score` — the dispatch wrapper of the pipeline.
+
+Two tables are taken (``table_a``/``table_b``) so the same kernel serves a
+shared table with pair indices and two operand stacks with iota indices.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.device import on_cuda
+from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
+from repro_torch.core.similarity import check_lcs_len, mss_scores, multi_level_lcs
+from repro_torch.kernels import _build
+from repro_torch.kernels.lcs.kernel import SENT_SHIFT, SENT_WINDOW, threads_for
+
+# the canonical lcs_impl-name -> dispatch-mode mapping for the fused family
+FUSED_IMPL_MODES = {
+    "fused": "auto",
+    "fused-pallas": "pallas",
+    "fused-interpret": "interpret",
+}
+
+_DISPATCH_MODES = ("auto", "pallas", "interpret", "ref")
+
+# threads per block of the fused kernel (capped by shared memory in threads_for)
+_FUSED_THREADS = 128
+
+
+def _masked_rows_lcs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Multi-level LCS of sentinel-masked [..., H, L] rows -> [..., H] int8.
+
+    The TPU kernel's rolling-window wavefront: a sentinel-padded reversed
+    copy of b is rolled right by one lane per step, so the diagonal gather
+    is a static slice; diagonals are carried in int8 (LCS <= L < 127).
+    """
+    *lead, L = a.shape
+    dev = a.device
+
+    def full(n, value, dtype=torch.int32):
+        return torch.full((*lead, n), value, dtype=dtype, device=dev)
+
+    a_ext = torch.cat([full(1, SENT_SHIFT), a], dim=-1)
+    window = torch.cat([full(L, SENT_WINDOW), b.flip(-1), full(L - 1, SENT_WINDOW)], dim=-1)
+    window = torch.roll(window, -(2 * L - 2), dims=-1)
+    zero = full(1, 0, torch.int8)
+
+    def shift_right(x):
+        return torch.cat([zero, x[..., :-1]], dim=-1)
+
+    d2 = d1 = full(L + 1, 0, torch.int8)
+    for _ in range(2 * L - 1):
+        match = a_ext == window[..., : L + 1]
+        new = torch.where(match, shift_right(d2) + 1, torch.maximum(d1, shift_right(d1)))
+        d2, d1 = d1, new
+        window = torch.roll(window, 1, dims=-1)
+    return d1[..., L]  # dp[L, L] per level
+
+
+def check_tables(table_a, len_a, table_b, len_b, left, right, betas) -> tuple[int, int, int]:
+    """Validate the fused operands; returns (P, H, L)."""
+    tensors = dict(table_a=table_a, len_a=len_a, table_b=table_b, len_b=len_b,
+                   left=left, right=right)
+    for name, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if betas.dtype != torch.float32:
+        raise TypeError(f"betas must be float32, got {betas.dtype}")
+    devices = {t.device for t in (*tensors.values(), betas)}
+    if len(devices) != 1:
+        raise ValueError(f"fused operands span devices {sorted(map(str, devices))}")
+    if table_a.ndim != 3 or table_b.shape[1:] != table_a.shape[1:]:
+        raise ValueError(f"tables must be [N, H, L] with equal H, L: "
+                         f"{tuple(table_a.shape)} vs {tuple(table_b.shape)}")
+    _, H, L = table_a.shape
+    P = left.shape[0]
+    if left.shape != (P,) or right.shape != (P,) or betas.shape != (H,):
+        raise ValueError("left/right must be [P] and betas [H]")
+    if len_a.shape != table_a.shape[:1] or len_b.shape != table_b.shape[:1]:
+        raise ValueError("len_a/len_b must be [N] of their tables")
+    if L < 1:
+        raise ValueError("code rows must hold at least one position")
+    check_lcs_len(L)
+    # the kernel reads rows at these indices unchecked: an index out of
+    # range (an unclamped PAD_ID) would read outside the tables
+    for name, idx, n in (("left", left, table_a.shape[0]), ("right", right, table_b.shape[0])):
+        if P and (int(idx.min()) < 0 or int(idx.max()) >= n):
+            raise IndexError(f"{name} holds indices outside [0, {n}); clamp PAD_ID slots first")
+    return P, H, L
+
+
+def fused_gather_score_plain(
+    table_a, len_a, table_b, len_b, left, right, betas
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the fused kernel, same contract."""
+    L = table_a.shape[-1]
+    pos = torch.arange(L, dtype=torch.int32, device=table_a.device)
+    a = torch.where(pos < len_a[left][:, None, None], table_a[left], PAD_CODE_A)
+    b = torch.where(pos < len_b[right][:, None, None], table_b[right], PAD_CODE_B)
+    lvl = _masked_rows_lcs(a, b).to(torch.int32)
+    return lvl, mss_scores(lvl, betas)
+
+
+def _launcher():
+    fn = _build.load("fused_score").fused_score_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_gather_score(
+    table_a: torch.Tensor,
+    len_a: torch.Tensor,
+    table_b: torch.Tensor,
+    len_b: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    betas: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The raw kernel call: tables + pair indices -> (level_lcs, mss).
+
+    table_a [Na, H, L] int32, len_a [Na] int32 (idem _b), left/right [P]
+    int32 indices into the respective tables (pre-clamped: no PAD_ID), betas
+    [H] float32 -> (level_lcs [P, H] int32, mss [P] float32), ``mss`` from
+    the kernel's own FMA-chain epilogue.  On a CUDA tensor: the kernel, at
+    most ``_FUSED_THREADS`` threads per block (raises if the launch fails).
+    On a CPU tensor: :func:`fused_gather_score_plain`.
+    """
+    P, H, L = check_tables(table_a, len_a, table_b, len_b, left, right, betas)
+    if not on_cuda(left):
+        return fused_gather_score_plain(table_a, len_a, table_b, len_b, left, right, betas)
+    ops = [t.contiguous() for t in (table_a, len_a, table_b, len_b, left, right, betas)]
+    lvl = torch.empty((P, H), dtype=torch.int32, device=left.device)
+    mss = torch.empty((P,), dtype=torch.float32, device=left.device)
+    if P == 0:
+        return lvl, mss
+    err = _launcher()(
+        *(t.data_ptr() for t in ops), lvl.data_ptr(), mss.data_ptr(),
+        P, H, L, threads_for(L, _FUSED_THREADS),
+        torch.cuda.current_stream(left.device).cuda_stream,
+    )
+    _build.check(err, "fused_gather_score")
+    fused_gather_score.launches += 1
+    return lvl, mss
+
+
+fused_gather_score.launches = 0
+
+
+def fused_score_ref(
+    table_a, len_a, table_b, len_b, left, right, betas
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the fused scorer: the gather-then-score path
+    (``multi_level_lcs`` + ``mss_scores``), bit-identical by construction to
+    ``score_pairs(..., impl_name="wavefront")``."""
+    lvl = multi_level_lcs(table_a[left], len_a[left], table_b[right], len_b[right])
+    return lvl, mss_scores(lvl, betas)
+
+
+def fused_score(
+    table_a: torch.Tensor,
+    len_a: torch.Tensor,
+    table_b: torch.Tensor,
+    len_b: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    mode: str = "auto",
+    exact_mss: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch wrapper mirroring ``kernels/lcs/ops.lcs``:
+
+      "auto"       the kernel on a CUDA tensor, the gather-then-score
+                   reference on a CPU tensor — the production default.
+      "pallas"     always :func:`fused_gather_score` (the kernel on a CUDA
+                   tensor, its plain version on a CPU tensor).
+      "interpret"  always the plain version of the kernel.
+      "ref"        always the gather-then-score reference.
+
+    ``exact_mss=True`` (default) recomputes the returned mss from the
+    integer level_lcs through ``mss_scores`` — the path every other
+    lcs_impl takes; ``exact_mss=False`` returns the scorer's own epilogue.
+    """
+    if mode not in _DISPATCH_MODES:
+        raise ValueError(
+            f"unknown fused dispatch mode {mode!r}; "
+            f"valid: {list(_DISPATCH_MODES)}"
+        )
+    if mode == "ref" or (mode == "auto" and not on_cuda(left)):
+        return fused_score_ref(table_a, len_a, table_b, len_b, left, right, betas)
+    if mode == "interpret":
+        lvl, mss = fused_gather_score_plain(
+            table_a, len_a, table_b, len_b, left, right, betas
+        )
+    else:
+        lvl, mss = fused_gather_score(
+            table_a, len_a, table_b, len_b, left, right, betas
+        )
+    if exact_mss:
+        mss = mss_scores(lvl, betas)
+    return lvl, mss

@@ -1,0 +1,101 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on the card.
+
+Every test here launches a CUDA kernel and is marked ``cuda``: without a
+CUDA device it skips.  This file imports neither ``jax`` nor ``repro``, so
+it runs on a GPU machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Integers (``level_lcs``, LCS values) must be equal and float32 ``mss`` bit-
+equal (tolerance 0): the fused kernel's epilogue is the same forward FMA
+chain (``__fmaf_rn`` in level order) as the plain ``mss_scores``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import AnotherMeEngine, EngineConfig
+from repro_torch.data import synthetic_setup
+from repro_torch.kernels.lcs import fused as tfused
+from repro_torch.kernels.lcs import kernel as tkernel
+from repro_torch.kernels.lcs import ops as tops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("launches a Hopper kernel: needs a CUDA device (run on the H100)")
+    tkernel.lcs_kernel.launches = 0
+    tfused.fused_gather_score.launches = 0
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _rows(B, L, seed, dev, alphabet=6):
+    rng = np.random.default_rng(seed)
+    la = rng.integers(1, L + 1, size=B)
+    lb = rng.integers(1, L + 1, size=B)
+    a = rng.integers(0, alphabet, size=(B, L)).astype(np.int32)
+    b = rng.integers(0, alphabet, size=(B, L)).astype(np.int32)
+    a[np.arange(L)[None, :] >= la[:, None]] = -1
+    b[np.arange(L)[None, :] >= lb[:, None]] = -2
+    return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+
+def _world(N, H, L, P, seed, dev):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, size=N).astype(np.int32)
+    codes = rng.integers(0, 6, size=(N, H, L)).astype(np.int32)
+    codes = np.where(np.arange(L)[None, None, :] >= lengths[:, None, None], -1, codes)
+    left = rng.integers(0, N, size=P).astype(np.int32)
+    right = rng.integers(0, N, size=P).astype(np.int32)
+    betas = rng.random(H).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (codes, lengths, left, right, betas)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,block_b", [(1, 1, 512), (3, 10, 512), (1000, 10, 64),
+                                         (777, 126, 512), (70_001, 10, 512)])
+def test_lcs_kernel_equals_plain(cuda, B, L, block_b):
+    a, b = _rows(B, L, B + L, cuda)
+    got = tops.lcs(a, b, mode="pallas", block_b=block_b)
+    assert tkernel.lcs_kernel.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tkernel.lcs_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 3, 5])
+def test_fused_kernel_equals_plain(cuda, H):
+    codes, lengths, left, right, betas = _world(1000, H, 10, 20_001, H, cuda)
+    lvl, mss = tfused.fused_gather_score(codes, lengths, codes, lengths, left, right, betas)
+    assert tfused.fused_gather_score.launches == 1
+    torch.cuda.synchronize()
+    want_lvl, want_mss = tfused.fused_gather_score_plain(
+        codes, lengths, codes, lengths, left, right, betas
+    )
+    assert torch.equal(lvl, want_lvl)
+    assert torch.equal(mss, want_mss)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_two_tables_iota(cuda):
+    ca, la, _, _, betas = _world(500, 3, 9, 1, 1, cuda)
+    cb, lb, _, _, _ = _world(500, 3, 9, 1, 2, cuda)
+    iota = torch.arange(500, dtype=torch.int32, device=cuda)
+    got = tfused.fused_gather_score(ca, la, cb, lb, iota, iota, betas)
+    want = tfused.fused_gather_score_plain(ca, la, cb, lb, iota, iota, betas)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_engine_kernel_impls_equal_cpu_engine(cuda):
+    cpu_batch, forest = synthetic_setup(2000, seed=0, device="cpu")
+    want = AnotherMeEngine(forest, EngineConfig(), device="cpu").run(cpu_batch)
+    batch, _ = synthetic_setup(2000, seed=0, device=cuda)
+    for impl in ("kernel", "pallas", "fused", "fused-pallas"):
+        got = AnotherMeEngine(forest, EngineConfig(lcs_impl=impl), device=cuda).run(batch)
+        assert got.similar_pairs == want.similar_pairs
+        assert got.communities == want.communities
+        for field in ("left", "right", "level_lcs", "mss"):
+            assert torch.equal(getattr(got.scored, field).cpu(), getattr(want.scored, field))
+    assert tkernel.lcs_kernel.launches > 0 and tfused.fused_gather_score.launches > 0

@@ -1,0 +1,266 @@
+"""The port's LCS kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each kernel wrapper takes its plain PyTorch version; these tests
+hold that version, and the dispatch around it, bit-equal to the JAX
+kernels run in interpret mode (at a few dozen pairs, as the JAX package's
+own golden tests run them) and to the JAX oracles at larger batches.
+``level_lcs`` is compared exactly, and float32 ``mss`` with tolerance 0:
+the port's kernel epilogue and ``mss_scores`` are the same forward FMA chain
+as the reference's ``einsum``.
+
+The kernels themselves are held against these plain versions on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import functools
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.lcs import fused as jfused
+from repro.kernels.lcs import kernel as jkernel
+from repro.kernels.lcs import ops as jops
+from repro.kernels.lcs.ref import lcs as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels.lcs import fused as tfused
+from repro_torch.kernels.lcs import kernel as tkernel
+from repro_torch.kernels.lcs import ops as tops
+
+
+def T(x):
+    return torch.as_tensor(np.array(x))  # a copy: JAX arrays are read-only
+
+
+def assert_same(got, want):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture
+def counts():
+    """Launch counters reset around a test."""
+    tkernel.lcs_kernel.launches = 0
+    tfused.fused_gather_score.launches = 0
+    yield
+    tkernel.lcs_kernel.launches = 0
+    tfused.fused_gather_score.launches = 0
+
+
+def _sentinel_pad(a, b, la, lb):
+    L = a.shape[1]
+    a, b = a.copy(), b.copy()
+    a[np.arange(L)[None, :] >= la[:, None]] = -1
+    b[np.arange(L)[None, :] >= lb[:, None]] = -2
+    return a, b
+
+
+def _rows(B, L, seed, alphabet=6):
+    rng = np.random.default_rng(seed)
+    la = rng.integers(1, L + 1, size=B)
+    lb = rng.integers(1, L + 1, size=B)
+    a = rng.integers(0, alphabet, size=(B, L)).astype(np.int32)
+    b = rng.integers(0, alphabet, size=(B, L)).astype(np.int32)
+    return _sentinel_pad(a, b, la, lb)
+
+
+# ---------------------------------------------------------------------------
+# batched LCS (port of lcs_pallas + ops.lcs)
+# ---------------------------------------------------------------------------
+LCS_CASES = {
+    "length_one": lambda: _sentinel_pad(*_rows(3, 8, 1)[:2], np.ones(3, int), np.ones(3, int)),
+    "max_len_one": lambda: (np.asarray([[2], [3], [4]], np.int32), np.asarray([[2], [5], [4]], np.int32)),
+    "odd_batch": lambda: _rows(37, 12, 2),
+    "identical": lambda: (np.full((16, 10), 7, np.int32), np.full((16, 10), 7, np.int32)),
+    "identical_prefixes": lambda: _sentinel_pad(
+        np.full((20, 10), 7, np.int32), np.full((20, 10), 7, np.int32),
+        np.arange(20) % 10 + 1, np.full(20, 10)),
+    "long_rows": lambda: _rows(4, 126, 3, alphabet=3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lcs_case(case):
+    """(a, b, the Pallas kernel's answer in interpret mode), once per case."""
+    a, b = LCS_CASES[case]()
+    want = jops.lcs(jnp.asarray(a), jnp.asarray(b), block_b=64, mode="interpret")
+    assert_same(want, jref(jnp.asarray(a), jnp.asarray(b)))
+    return a, b, np.asarray(want)
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas", "interpret", "wavefront"])
+@pytest.mark.parametrize("case", sorted(LCS_CASES))
+def test_lcs_matches_pallas_interpret(case, mode, counts):
+    a, b, want = _lcs_case(case)
+    assert_same(tops.lcs(T(a), T(b), block_b=64, mode=mode), want)
+    assert tkernel.lcs_kernel.launches == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("B,block_b", [(1, 4), (5, 4), (7, 8), (30, 16)])
+def test_lcs_kernel_wrapper_any_batch(B, block_b, counts):
+    a, b = _rows(B, 10, B)
+    want = jkernel.lcs_pallas(jnp.asarray(a), jnp.asarray(b), block_b=block_b, interpret=True)
+    assert_same(tkernel.lcs_kernel(T(a), T(b), block_b=block_b), want)
+    assert_same(tkernel.lcs_plain(T(a), T(b)), want)
+    assert tkernel.lcs_kernel.launches == 0
+
+
+@pytest.mark.parametrize("B", [257, 513, 1000])
+def test_lcs_golden_at_non_pow2_batches(B):
+    a, b = _rows(B, 10, B)
+    want = jref(jnp.asarray(a), jnp.asarray(b))
+    for mode in ("auto", "pallas"):
+        assert_same(tops.lcs(T(a), T(b), block_b=512, mode=mode), want)
+
+
+def test_block_for_matches_reference():
+    assert tops._block_for(513, 512) == 128
+    assert tops._block_for(512, 512) == 512
+    assert tops._block_for(1024, 512) == 512
+    assert tops._block_for(640, 512) == 128
+    assert tops._block_for(100, 512) == 128
+    assert tops._block_for(1000, 64) == 64
+    assert tops._block_for(3, 4) == 4
+    assert tops._block_for(1, 1) == 1
+    for batch in (1, 7, 100, 129, 513, 4097, 30_001):
+        for cap in (1, 4, 64, 512, 1024):
+            assert tops._block_for(batch, cap) == jops._block_for(batch, cap)
+
+
+def test_threads_for_respects_shared_memory():
+    assert tkernel.threads_for(10, 512) == 512
+    assert tkernel.threads_for(10, 4096) == 512  # 2*10*4*1024 > 48 KB
+    assert tkernel.threads_for(126, 512) == 32   # 2*126*4*t <= 48 KB
+    assert tkernel.threads_for(1, 64) == 64
+    for L in range(1, 127):
+        t = tkernel.threads_for(L, 1024)
+        assert t & (t - 1) == 0 and 2 * L * 4 * t <= 48 * 1024
+
+
+def test_lcs_wrappers_reject_bad_operands():
+    a = torch.zeros((4, 10), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tkernel.lcs_kernel(a.long(), a.long())
+    with pytest.raises(ValueError):
+        tkernel.lcs_kernel(a, a[:, :5])
+    with pytest.raises(ValueError, match="127"):
+        big = torch.zeros((2, 127), dtype=torch.int32)
+        tkernel.lcs_kernel(big, big)
+    with pytest.raises(ValueError, match="dispatch mode"):
+        tops.lcs(a, a, mode="bogus")
+
+
+# ---------------------------------------------------------------------------
+# fused gather-and-score (port of fused_gather_score + fused_score)
+# ---------------------------------------------------------------------------
+def _world(N, H, L, P, seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, size=N).astype(np.int32)
+    codes = rng.integers(0, 6, size=(N, H, L)).astype(np.int32)
+    pad = np.arange(L)[None, None, :] >= lengths[:, None, None]
+    codes = np.where(pad, -1, codes)
+    left = rng.integers(0, N, size=P).astype(np.int32)
+    right = rng.integers(0, N, size=P).astype(np.int32)
+    betas = rng.random(H).astype(np.float32)
+    return codes, lengths, left, right, betas
+
+
+def _check_fused(codes, lengths, left, right, betas, codes_b=None, lengths_b=None):
+    cb = codes if codes_b is None else codes_b
+    lb = lengths if lengths_b is None else lengths_b
+    j_args = tuple(map(jnp.asarray, (codes, lengths, cb, lb, left, right, betas)))
+    t_args = tuple(map(T, (codes, lengths, cb, lb, left, right, betas)))
+    want_lvl, want_mss = jfused.fused_score(*j_args, mode="interpret")
+    assert_same(want_lvl, jfused.fused_score_ref(*j_args)[0])
+    raw_lvl, _ = jfused.fused_gather_score(*j_args, interpret=True)
+    for mode in ("auto", "pallas", "interpret", "ref"):
+        lvl, mss = tfused.fused_score(*t_args, mode=mode)
+        assert_same(lvl, want_lvl)
+        assert_same(mss, want_mss)
+        lvl, mss = tfused.fused_score(*t_args, mode=mode, exact_mss=False)
+        assert_same(lvl, want_lvl)
+        assert_same(mss, want_mss)  # the port's epilogue is the FMA chain too
+    lvl, mss = tfused.fused_gather_score(*t_args)
+    assert_same(lvl, raw_lvl)
+    assert_same(mss, want_mss)
+    assert_same(tfused.fused_gather_score_plain(*t_args)[0], raw_lvl)
+    assert tfused.fused_gather_score.launches == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("P", [1, 3, 37])
+def test_fused_odd_pair_counts(P, counts):
+    _check_fused(*_world(N=11, H=3, L=9, P=P, seed=P))
+
+
+@pytest.mark.parametrize("H", [1, 2, 4, 5])
+def test_fused_level_counts(H, counts):
+    _check_fused(*_world(N=9, H=H, L=8, P=13, seed=H))
+
+
+def test_fused_length_one_rows(counts):
+    codes, lengths, left, right, betas = _world(8, 3, 7, 16, seed=2)
+    codes = np.where(np.arange(7)[None, None, :] < 1, codes, -1)
+    _check_fused(codes, np.ones_like(lengths), left, right, betas)
+
+
+def test_fused_all_identical_rows(counts):
+    N, H, L, P = 6, 2, 8, 10
+    codes = np.full((N, H, L), 4, np.int32)
+    lengths = np.full((N,), L, np.int32)
+    left = (np.arange(P) % N).astype(np.int32)
+    right = ((np.arange(P) + 1) % N).astype(np.int32)
+    betas = np.asarray([0.25, 0.75], np.float32)
+    _check_fused(codes, lengths, left, right, betas)
+    lvl, _ = tfused.fused_gather_score(*map(T, (codes, lengths, codes, lengths, left, right, betas)))
+    assert (lvl.numpy() == L).all()
+
+
+def test_fused_two_distinct_tables_iota_indices(counts):
+    codes_a, len_a, _, _, betas = _world(14, 3, 9, 14, seed=5)
+    codes_b, len_b, _, _, _ = _world(14, 3, 9, 14, seed=6)
+    iota = np.arange(14, dtype=np.int32)
+    _check_fused(codes_a, len_a, iota, iota, betas, codes_b=codes_b, lengths_b=len_b)
+
+
+def test_fused_plain_version_at_larger_batch():
+    """Beyond interpret-mode sizes: the plain version against the JAX
+    gather-then-score oracle over a thousand pairs."""
+    args = _world(N=200, H=3, L=10, P=1000, seed=9)
+    want = jfused.fused_score_ref(*map(jnp.asarray, (args[0], args[1], args[0], args[1], *args[2:])))
+    got = tfused.fused_gather_score_plain(*map(T, (args[0], args[1], args[0], args[1], *args[2:])))
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
+
+
+def test_fused_wrappers_reject_bad_operands():
+    codes, lengths, left, right, betas = map(T, _world(5, 3, 6, 4))
+    with pytest.raises(ValueError, match="dispatch mode"):
+        tfused.fused_score(codes, lengths, codes, lengths, left, right, betas, mode="bogus")
+    with pytest.raises(TypeError):
+        tfused.fused_gather_score(codes.long(), lengths, codes, lengths, left, right, betas)
+    with pytest.raises(TypeError):
+        tfused.fused_gather_score(codes, lengths, codes, lengths, left, right, betas.double())
+    with pytest.raises(ValueError):
+        tfused.fused_gather_score(codes, lengths, codes[:, :2], lengths, left, right, betas)
+    pad = torch.full_like(left, 2**31 - 1)
+    with pytest.raises(IndexError, match="clamp PAD_ID"):
+        tfused.fused_gather_score(codes, lengths, codes, lengths, pad, right, betas)
+    assert tfused.FUSED_IMPL_MODES == jfused.FUSED_IMPL_MODES
+
+
+# ---------------------------------------------------------------------------
+# the build
+# ---------------------------------------------------------------------------
+def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
+    assert _build.sources() == ["fused_score", "lcs"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a system nvcc under /usr/local/cuda is always found")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
