@@ -19,11 +19,20 @@ phases, and exits non-zero if any phase fails:
    1M-pair slice of its scored buffer is re-scored by the plain version.
 7. kernel  — 200,000 trajectories with ``lcs_impl="kernel"`` and "fused":
    equal similar pairs and communities.
-8. timing  — each kernel and its plain version on the main path's inputs
-   (CUDA events), beside the least time the card could take.
+8. subtraj — the subtrajectory mode (``subtraj_window=8``) on fig13's
+   forest with trajectories of 10-20 places: 2,000 trajectories (W = 8 and
+   W >= L) against the plain "wavefront" engine on the card; 100,000
+   trajectories with ``lcs_impl="fused"`` (a 1M-pair slice of the window
+   buffer re-scored by the plain version); 20,000 with "kernel" against
+   "fused".
+9. shingle — the public ``shingle_keys`` op (which neither engine calls) on
+   the main world's type codes, counted, and the kernel against its plain
+   version there and on the subtrajectory world's window view.
+10. timing — each kernel and its plain version on its path's inputs (CUDA
+   events), beside the least time the card could take.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each engine run and read just after, and a path whose kernel was
+before each path is driven and read just after, and a path whose kernel was
 never launched fails.  The second-to-last line is a JSON object with one
 entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -58,6 +67,13 @@ KERNEL_N = 200_000
 SMALL_N = 3_000
 NUM_TYPES = 300
 RHO = 2.0
+# the subtrajectory path: fig13's forest, fig10-subtraj's window, rows of
+# 10-20 places (13 windows of 8 a full row)
+SUB_N = 100_000
+SUB_KERNEL_N = 20_000
+SUB_SMALL_N = 2_000
+SUB_WINDOW = 8
+SUB_ROWS = dict(min_len=10, max_len=20)
 
 
 class SmokeFailure(RuntimeError):
@@ -164,23 +180,73 @@ def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_
             f"kernel mss epilogue (exact_mss=False) bit-equal to mss_scores: {epilogue_equal}")
 
 
+def phase_windowed_kernel(torch, dev, table_shape=(SUB_N, 3, 20), pairs=4_000_037):
+    """The windowed fused kernel against its plain version, bit-equal, on
+    window coordinates as the engine decodes them: clamped PAD_ID slots
+    (trajectory 0, offset 0) and the last offset of a row among them."""
+    import numpy as np
+
+    from repro_torch.core.subtraj import num_windows
+    from repro_torch.kernels.lcs import fused
+
+    rng = np.random.default_rng(1)
+    N, H, L = table_shape
+    W = SUB_WINDOW
+    nw = num_windows(L, W)
+    lengths = torch.as_tensor(rng.integers(10, L + 1, size=N).astype(np.int32), device=dev)
+    codes = torch.as_tensor(rng.integers(0, 30, size=table_shape).astype(np.int32), device=dev)
+    codes = torch.where(torch.arange(L, device=dev) < lengths[:, None, None], codes, -1)
+    betas = torch.full((H,), 1.0 / H, dtype=torch.float32, device=dev)
+    for P in (1, 4097, pairs):
+        w = rng.integers(0, N * nw, size=(2, P)).astype(np.int64)
+        w[:, : P // 100] = 0                  # clamped PAD_ID slots
+        w[0, P // 100: P // 50] = nw - 1      # the last offset of row 0
+        w = torch.as_tensor(w, device=dev)
+        ta, tb = (w[0] // nw).int(), (w[1] // nw).int()
+        oa, ob = (w[0] % nw).int(), (w[1] % nw).int()
+        args = (codes, lengths, codes, lengths, ta, tb, oa, ob, betas)
+        lvl, mss = fused.fused_windowed_gather_score(*args, window=W)
+        want_lvl, want_mss = fused.fused_windowed_gather_score_plain(*args, window=W)
+        check(torch.equal(lvl, want_lvl), f"windowed level_lcs != plain at P={P}")
+        check(torch.equal(mss, want_mss), f"windowed kernel mss epilogue != mss_scores at P={P}")
+        if P <= 4097:
+            ref_lvl, ref_mss = fused.fused_windowed_score_ref(*args, window=W)
+            check(torch.equal(lvl, ref_lvl) and torch.equal(mss, ref_mss),
+                  f"windowed kernel != gather-windows reference at P={P}")
+        log(f"fused_windowed P={P} table={tuple(codes.shape)} W={W}: level_lcs and the "
+            "kernel's mss epilogue bit-equal to the plain version")
+
+
 def _engine(dev, forest, impl, **cfg):
     from repro_torch.api import AnotherMeEngine, EngineConfig
 
     return AnotherMeEngine(forest, EngineConfig(backend="ssh", lcs_impl=impl, **cfg), device=dev)
 
 
+def _wrappers():
+    from repro_torch.kernels.lcs import fused, kernel
+    from repro_torch.kernels.shingle import kernel as shingle
+
+    return {"lcs_kernel": kernel.lcs_kernel,
+            "fused_gather_score": fused.fused_gather_score,
+            "fused_windowed_gather_score": fused.fused_windowed_gather_score,
+            "shingle_kernel": shingle.shingle_kernel}
+
+
+def _counted(fn):
+    """Call ``fn`` with every launch count set to 0 just before it; returns
+    (its result, the launch counts of this call)."""
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
 def _run_counted(engine, batch):
     """Run the engine with every launch count set to 0 just before it;
     returns (result, launch counts of this run)."""
-    from repro_torch.kernels.lcs import fused, kernel
-
-    kernel.lcs_kernel.launches = 0
-    fused.fused_gather_score.launches = 0
-    res = engine.run(batch)
-    counts = {"lcs_kernel": kernel.lcs_kernel.launches,
-              "fused_gather_score": fused.fused_gather_score.launches}
-    return res, counts
+    return _counted(lambda: engine.run(batch))
 
 
 def phase_fig1(dev):
@@ -303,6 +369,153 @@ def phase_kernel_path(torch, dev, n=KERNEL_N):
     return kcounts, (a, b)
 
 
+def _sub_engine(dev, forest, impl, window=SUB_WINDOW, **cfg):
+    return _engine(dev, forest, impl, rho=RHO, subtraj_window=window, **cfg)
+
+
+def phase_subtraj_small(torch, dev, n=SUB_SMALL_N):
+    """Windowed kernel impls against the plain engine, both on the card."""
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
+    for window in (SUB_WINDOW, 64):  # W < L, and W >= L (whole trajectories)
+        want = _sub_engine(dev, forest, "wavefront", window).run(batch)
+        check(len(want.similar_pairs) > 0, f"subtraj small W={window}: no similar pairs")
+        for impl, kern in (("fused", "fused_windowed_gather_score"), ("kernel", "lcs_kernel")):
+            res, counts = _run_counted(_sub_engine(dev, forest, impl, window), batch)
+            expect_launched(counts, [kern])
+            _same_result(res, want, f"subtraj small W={window} {impl}")
+        log(f"subtraj small: N={n} W={window}: fused and kernel == plain engine "
+            f"({want.stats['num_window_pairs']} window pairs, "
+            f"{want.stats['num_traj_pairs']} trajectory pairs, {len(want.similar_pairs)} similar)")
+
+
+def _sub_stats_line(tag, res, counts):
+    s = res.stats
+    keys = ("t_encode", "t_keys", "t_join", "t_score", "t_aggregate", "t_communities",
+            "t_total")
+    log(f"{tag}: " + " ".join(f"{k}={s[k]:.3f}s" for k in keys))
+    log(f"{tag}: num_window_pairs={s['num_window_pairs']} num_traj_pairs={s['num_traj_pairs']} "
+        f"pair_capacity={s['pair_capacity']} join_overflow={s['join_overflow']} "
+        f"subtraj_windows={s['subtraj_windows']} num_similar={s['num_similar']} "
+        f"num_communities={s['num_communities']} launches={counts}")
+
+
+def _pairs_slice(coords, s):
+    """The windowed scorer's operands with the four [P] coordinate vectors
+    (positions 4-7) cut to the slice ``s``."""
+    return [x[s] if 4 <= i < 8 else x for i, x in enumerate(coords)]
+
+
+def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
+    """The subtrajectory engine at full size with ``lcs_impl="fused"``."""
+    import numpy as np
+
+    from repro_torch.core.encoding import encode_batch
+    from repro_torch.core.ssh import ssh_candidates
+    from repro_torch.core.subtraj import num_windows, window_coords
+    from repro_torch.data import synthetic_setup
+    from repro_torch.kernels.lcs import fused
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
+    engine = _sub_engine(dev, forest, "fused", community_mode="components")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res, counts = _run_counted(engine, batch)
+    wall = time.perf_counter() - t0
+    expect_launched(counts, ["fused_windowed_gather_score"])
+    _sub_stats_line(f"subtraj N={n} W={SUB_WINDOW}", res, counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    log(f"subtraj: run wall {wall:.3f}s, peak device memory {peak:.2f} GiB")
+
+    sc, st = res.scored, res.stats
+    T = st["num_traj_pairs"]
+    check(sc.left.shape == (T,) and sc.level_lcs.shape == (T, 3) and sc.mss.shape == (T,),
+          "subtraj: scored buffer shape")
+    check(int(sc.count) == T > 0 and int(sc.overflow) == 0, "subtraj: pair count or overflow")
+    check(bool((sc.left < sc.right).all()), "subtraj: trajectory pairs not canonical")
+    check(bool(torch.isfinite(sc.mss).all()), "subtraj: non-finite mss")
+    check(int(sc.level_lcs.min()) >= 0 and int(sc.level_lcs.max()) <= SUB_WINDOW,
+          "subtraj: window LCS out of range")
+    check(int((sc.mss > RHO).sum()) == len(res.similar_pairs) > 0,
+          "subtraj: similar set disagrees with mss > rho")
+
+    # the window buffer the engine scored (the join is deterministic): a
+    # slice re-scored by the kernel and by the plain version, bit-equal, and
+    # every window pair of the slice under its trajectory pair's maximum
+    enc = encode_batch(batch, engine.tables)
+    keys = engine.backend.join_keys(enc, batch, engine.backend_ctx)
+    cand = ssh_candidates(keys, pair_capacity=st["pair_capacity"])
+    del keys
+    check(int(cand.count) == st["num_window_pairs"], "subtraj: window buffer differs")
+    nw = num_windows(enc.codes.shape[2], SUB_WINDOW)
+    check(nw == st["subtraj_windows"], "subtraj: window count")
+    ta, oa = window_coords(cand.left, nw=nw)
+    tb, ob = window_coords(cand.right, nw=nw)
+    del cand
+    coords = (enc.codes, enc.lengths, enc.codes, enc.lengths, ta, tb, oa, ob, engine.betas)
+    s = slice(0, min(slice_pairs, ta.shape[0]))
+    part = _pairs_slice(coords, s)
+    lvl, mss = fused.fused_windowed_gather_score(*part, window=SUB_WINDOW)
+    want_lvl, want_mss = fused.fused_windowed_gather_score_plain(*part, window=SUB_WINDOW)
+    check(torch.equal(lvl, want_lvl) and torch.equal(mss, want_mss),
+          "subtraj: window slice kernel != plain")
+    a, b = ta[s].cpu().numpy().astype(np.int64), tb[s].cpu().numpy().astype(np.int64)
+    cross = a != b
+    key = np.minimum(a, b)[cross] * n + np.maximum(a, b)[cross]
+    agg = sc.left.cpu().numpy().astype(np.int64) * n + sc.right.cpu().numpy()
+    at = np.searchsorted(agg, key)
+    check(bool((agg[np.minimum(at, T - 1)] == key).all()),
+          "subtraj: a scored window pair has no trajectory pair")
+    check(bool((sc.mss.cpu().numpy()[at] >= mss.cpu().numpy()[cross]).all()),
+          "subtraj: a window pair beats its trajectory pair's maximum")
+    log(f"subtraj: slice of {s.stop} window pairs bit-equal to the plain version, "
+        f"each under its trajectory pair's max-over-windows mss")
+    sub_types = (enc.codes[:, 0, :], enc.lengths)
+    return counts, coords, sub_types
+
+
+def phase_subtraj_kernel_path(torch, dev, n=SUB_KERNEL_N):
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
+    kres, kcounts = _run_counted(_sub_engine(dev, forest, "kernel"), batch)
+    expect_launched(kcounts, ["lcs_kernel"])
+    _sub_stats_line(f"subtraj kernel-path N={n} lcs_impl=kernel", kres, kcounts)
+    fres, fcounts = _run_counted(_sub_engine(dev, forest, "fused"), batch)
+    expect_launched(fcounts, ["fused_windowed_gather_score"])
+    _sub_stats_line(f"subtraj kernel-path N={n} lcs_impl=fused", fres, fcounts)
+    _same_result(kres, fres, f"subtraj N={n} kernel vs fused")
+    log(f"subtraj kernel-path: lcs_impl=kernel == lcs_impl=fused at N={n}")
+
+
+def phase_shingle(torch, dev, main_types, sub_types, k=3):
+    """The public shingle op, counted, on the main world's type codes; the
+    kernel against its plain version there and on the window view."""
+    from repro_torch.core.shingling import num_shingles, shingles_from_types, windowed_types
+    from repro_torch.core.types import PAD_KEY
+    from repro_torch.kernels.shingle import kernel, ops
+
+    types, lengths = main_types
+    keys, counts = _counted(lambda: ops.shingle_keys(types, lengths, k=k, num_types=NUM_TYPES))
+    expect_launched(counts, ["shingle_kernel"])
+    windows = windowed_types(*sub_types, window=SUB_WINDOW)
+    for name, (t, ln) in (("main world", (types, lengths)), ("window view", windows)):
+        S = num_shingles(t.shape[1], k)
+        s_pad = -(-S // 128) * 128
+        raw = kernel.shingle_kernel(t, ln, k=k, num_types=NUM_TYPES, s_pad=s_pad)
+        check(torch.equal(raw, kernel.shingle_plain(t, ln, k=k, num_types=NUM_TYPES, s_pad=s_pad)),
+              f"shingle kernel != plain on the {name}")
+        got = keys if name == "main world" else ops.shingle_keys(t, ln, k=k, num_types=NUM_TYPES)
+        check(torch.equal(got[:, :S], shingles_from_types(t, ln, k=k, num_types=NUM_TYPES)),
+              f"shingle_keys != shingles_from_types on the {name}")
+        check(bool((got[:, S:] == PAD_KEY).all()), f"shingle_keys padding on the {name}")
+        log(f"shingle {name} {list(t.shape)} k={k}: kernel bit-equal to plain, "
+            f"keys equal shingles_from_types on the first {S} of {s_pad} columns")
+    return counts
+
+
 def _time_ms(torch, fn, reps=5):
     """Median of ``reps`` CUDA-event timings after one warm-up call."""
     fn()
@@ -386,6 +599,72 @@ def phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts
     return entries
 
 
+def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, main_types, shingle_counts):
+    from repro_torch.kernels.lcs import fused
+    from repro_torch.kernels.shingle import kernel
+
+    entries = []
+    codes, lengths, _, _, ta, tb, oa, ob, betas = sub_coords
+    P, H, W = ta.shape[0], codes.shape[1], SUB_WINDOW
+    run = lambda: fused.fused_windowed_gather_score(*sub_coords, window=W)  # noqa: E731
+    ms = _time_ms(torch, run)
+    lvl, mss = run()
+    chunk = 1 << 22
+
+    def plain():
+        for s in range(0, P, chunk):
+            fused.fused_windowed_gather_score_plain(
+                *_pairs_slice(sub_coords, slice(s, s + chunk)), window=W
+            )
+
+    plain_ms = _time_ms(torch, plain, reps=1)
+    want_lvl, want_mss = fused.fused_windowed_gather_score_plain(
+        *_pairs_slice(sub_coords, slice(0, chunk)), window=W
+    )
+    err = max(float((lvl[:chunk] - want_lvl).abs().max()),
+              float((mss[:chunk] - want_mss).abs().max()))
+    # each input read once (one table and lengths for both sides, four [P]
+    # coordinate vectors), each output written once; one op per DP cell
+    nbytes = (codes.numel() + lengths.numel() + 4 * P + H) * 4 + P * (H + 1) * 4
+    bound, by = _bound_ms(nbytes, P * H * W * W)
+    entries.append(dict(
+        name="fused_windowed_gather_score", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_windowed_score.cu",
+        replaces="src/repro/kernels/lcs/fused.py:264",
+        launches=sub_counts["fused_windowed_gather_score"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        path=f"subtraj: SSH engine N={SUB_N} subtraj_window={W} lcs_impl=fused",
+        shape=f"table {list(codes.shape)} window pairs {P}",
+    ))
+    log(f"timing fused_windowed_gather_score: {ms:.3f} ms (plain {plain_ms:.3f} ms in "
+        f"{chunk}-pair chunks, bound {bound:.3f} ms by {by}); library_ms: no single "
+        "PyTorch call computes an LCS")
+
+    types, lengths = main_types
+    N, L = types.shape
+    k, s_pad = 3, 128
+    opts = dict(k=k, num_types=NUM_TYPES, s_pad=s_pad)
+    run = lambda: kernel.shingle_kernel(types, lengths, **opts)  # noqa: E731
+    ms = _time_ms(torch, run)
+    plain = lambda: kernel.shingle_plain(types, lengths, **opts)  # noqa: E731
+    plain_ms = _time_ms(torch, plain, reps=3)
+    err = float((run().long() - plain().long()).abs().max())
+    bound, by = _bound_ms(N * (L + 1) * 4 + N * s_pad * 4, N * s_pad * k)
+    entries.append(dict(
+        name="shingle_kernel", route="cuda",
+        source="src/repro_torch/kernels/csrc/shingle.cu",
+        replaces="src/repro/kernels/shingle/kernel.py:79",
+        launches=shingle_counts["shingle_kernel"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        path=f"public op shingle_keys on the main world's type codes (N={MAIN_N}; "
+             "neither engine calls it)",
+        shape=f"types {list(types.shape)} k {k} s_pad {s_pad}",
+    ))
+    log(f"timing shingle_kernel: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+        f"by {by}); library_ms: no single PyTorch call packs shingle keys")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -404,11 +683,22 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     phase_kernels(torch, dev)
+    phase_windowed_kernel(torch, dev)
     phase_fig1(dev)
     phase_small(torch, dev)
     _, main_counts, main_inputs = phase_main(torch, dev)
     kernel_counts, kernel_operands = phase_kernel_path(torch, dev)
     entries = phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts)
+    codes, lengths = main_inputs[:2]
+    main_types = (codes[:, 0, :].contiguous(), lengths)
+    del main_inputs, kernel_operands, codes
+    phase_subtraj_small(torch, dev)
+    sub_counts, sub_coords, sub_types = phase_subtraj(torch, dev)
+    phase_subtraj_kernel_path(torch, dev)
+    shingle_counts = phase_shingle(torch, dev, main_types, sub_types)
+    entries += phase_timing_windowed_and_shingle(
+        torch, sub_coords, sub_counts, main_types, shingle_counts
+    )
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -12,7 +12,10 @@ and asking for them raises like any unknown name, listing what is
 registered.
 
 Every backend reduces to PAD_KEY-padded int32 join keys ``[N, S]`` — pairs
-sharing any key become candidates via the same sort-merge join.
+sharing any key become candidates via the same sort-merge join.  In the
+subtrajectory mode (``BackendContext.window`` set) the key rows are the
+trajectories' sliding windows instead (:func:`_windowed_view`), so the join
+emits candidate pairs of window ids.
 """
 from __future__ import annotations
 
@@ -22,17 +25,38 @@ from typing import Callable
 import torch
 
 from repro_torch.core.encoding import type_codes
-from repro_torch.core.shingling import shingles_from_types
+from repro_torch.core.shingling import shingles_from_types, windowed_types
 from repro_torch.core.ssh import exact_pair_count, ssh_candidates
 from repro_torch.core.types import CandidatePairs, EncodedBatch, TrajectoryBatch
 
 
 @dataclasses.dataclass(frozen=True)
 class BackendContext:
-    """Static pipeline facts a backend may need (from config + forest)."""
+    """Static pipeline facts a backend may need (from config + forest).
+
+    ``window``/``stride`` carry the subtrajectory mode
+    (``EngineConfig(subtraj_window=W, subtraj_stride=s)``): when ``window``
+    is set, a backend keys the SLIDING WINDOWS of each trajectory instead of
+    the whole row — key row ``t * nw + j`` holds window j of trajectory t
+    (see :mod:`repro_torch.core.subtraj`).
+    """
 
     k: int
     num_types: int
+    window: int | None = None
+    stride: int = 1
+
+
+def _windowed_view(types, lengths, ctx: BackendContext):
+    """The key-input view: windows as virtual rows when the mode is on.
+
+    [N, L] type codes -> [N*nw, W] window rows + [N*nw] window lengths
+    (identity when ``ctx.window`` is None), shared by every backend so the
+    windowed key layout cannot drift between them.
+    """
+    if ctx.window is None:
+        return types, lengths
+    return windowed_types(types, lengths, window=ctx.window, stride=ctx.stride)
 
 
 class CandidateBackend:
@@ -74,8 +98,9 @@ class SSHBackend(CandidateBackend):
     name: str = dataclasses.field(default="ssh", init=False)
 
     def join_keys(self, encoded, batch, ctx):
+        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
         return shingles_from_types(
-            type_codes(encoded), encoded.lengths,
+            types, lengths,
             k=ctx.k, num_types=ctx.num_types, dedup=self.dedup,
         )
 

@@ -10,8 +10,11 @@
 The engine composes the typed stages of api/stages.py — Encode, Candidate,
 Score, Communities — on one device.  It runs on the card unless the caller
 passes ``device="cpu"`` (the CPU tests do); without a card the default
-raises.  The JAX engine's sharded execution, subtrajectory mode, autotuning
-and streaming knobs are not ported yet and raise :class:`NotPortedError`.
+raises.  ``EngineConfig(subtraj_window=W, subtraj_stride=s)`` runs the
+subtrajectory mode: candidates and scores over sliding windows, folded to
+trajectory pairs by max-over-windows (see ``core/subtraj.py``).  The JAX
+engine's sharded execution, autotuning and streaming knobs are not ported
+yet and raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -51,8 +54,9 @@ class EngineConfig:
     capacity_slack: float = 1.10
     community_mode: str = "cliques"  # "cliques" | "components"
     max_retries: int = 3
-    subtraj_window: int | None = None  # subtrajectory mode: not ported
-    subtraj_stride: int = 1
+    subtraj_window: int | None = None  # subtrajectory mode: score sliding
+    #                                    windows of W positions (None: off)
+    subtraj_stride: int = 1            # offset between successive windows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +115,6 @@ class AnotherMeEngine:
             raise NotPortedError(f"ExecutionPlan(delta_join={plan.delta_join!r})")
         if plan.overlap_chunks != 1:
             raise NotPortedError(f"ExecutionPlan(overlap_chunks={plan.overlap_chunks})")
-        if config.subtraj_window is not None:
-            raise NotPortedError(
-                f"EngineConfig(subtraj_window={config.subtraj_window})"
-            )
         self.device = resolve_device(device)
         self.forest = forest
         self.config = config
@@ -128,7 +128,25 @@ class AnotherMeEngine:
         self.backend = backend if backend is not None else get_backend(
             config.backend, **dict(config.backend_options or {})
         )
-        self.backend_ctx = BackendContext(k=config.k, num_types=forest.num_types)
+        if config.subtraj_window is not None:
+            if config.subtraj_window < 1:
+                raise ValueError(
+                    f"subtraj_window must be positive, got {config.subtraj_window}"
+                )
+            if config.subtraj_stride < 1:
+                raise ValueError(
+                    f"subtraj_stride must be positive, got {config.subtraj_stride}"
+                )
+            if type(self.backend).join_keys is CandidateBackend.join_keys:
+                raise ValueError(
+                    f"candidate backend {self.backend.name!r} produces no "
+                    "join keys; the subtrajectory mode needs key-based "
+                    "candidates to carry (traj, offset) window coordinates"
+                )
+        self.backend_ctx = BackendContext(
+            k=config.k, num_types=forest.num_types,
+            window=config.subtraj_window, stride=config.subtraj_stride,
+        )
         self.planner = CapacityPlanner(
             slack=config.capacity_slack, max_retries=config.max_retries,
         )

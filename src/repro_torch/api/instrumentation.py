@@ -11,6 +11,8 @@ Stats key conventions (the JAX engine's, single-device subset):
   t_candidates   t_keys + t_join
   t_prune        MSS upper-bound pruning (only with score_prune)
   t_score        phase (iii) similarity scoring
+  t_aggregate    subtrajectory mode only: the host fold of scored window
+                 pairs to trajectory pairs and the ``mss > rho`` set
   t_communities  phase (iv)  community detection
   t_total        sum of every t_* phase above
   t_shingle      legacy alias of t_keys

@@ -24,6 +24,13 @@ instrumentation wrapper's job) and no capacity policy (the planner's).
 Every name yields the same ``level_lcs`` and bit-identical float32 ``mss``.
 Host decisions (the ``mss > rho`` mask and the prune) run in numpy exactly
 as in the JAX package, so float32-versus-Python-float comparisons match.
+
+In the subtrajectory mode (``config.subtraj_window`` set) candidate ids are
+window ids: "fused*" run the windowed fused scorer
+(fused_windowed_score.cu on a CUDA tensor), the kernel family slices the
+windows and runs the same LCS kernel over width-W rows, and "wavefront" and
+"ref" gather the windows.  The scored window pairs are then folded to
+trajectory pairs on the host (``core/subtraj.aggregate_window_pairs``).
 """
 from __future__ import annotations
 
@@ -42,7 +49,10 @@ from repro_torch.core.device import to_numpy as _np
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B, SemanticForest, encode_batch
 from repro_torch.core.similarity import (
     PRUNE_EPS, lcs_ref, lcs_wavefront, mss_scores, mss_upper_bound, repad,
-    score_pairs, wavefront_dtype_from_env,
+    score_pairs, score_windowed_pairs, wavefront_dtype_from_env,
+)
+from repro_torch.core.subtraj import (
+    aggregate_window_pairs, num_windows, window_coords, window_lengths,
 )
 from repro_torch.core.ssh import ssh_candidates
 from repro_torch.core.types import (
@@ -177,10 +187,21 @@ class ScoreStage:
     def run(self, ctx: PipelineContext) -> None:
         cfg, cand = ctx.config, ctx.candidates
         impl = validate_lcs_impl(cfg.lcs_impl)
+        L = int(ctx.encoded.codes.shape[2])
+        subtraj = _subtraj_of(cfg, L)
         if cfg.score_prune:
             with ctx.instr.phase("prune"):
+                if subtraj is None:
+                    prune_lengths = ctx.encoded.lengths
+                else:
+                    # windowed candidates index per-WINDOW lengths: the MSS
+                    # bound of a window pair is betas_sum * min(wlen_a, wlen_b)
+                    prune_lengths = window_lengths(
+                        _np(ctx.encoded.lengths), max_len=L,
+                        window=subtraj[0], stride=subtraj[1],
+                    )
                 cand, num_pruned = prune_candidates(
-                    cand, ctx.encoded.lengths, ctx.betas, cfg.rho, ctx.planner
+                    cand, prune_lengths, ctx.betas, cfg.rho, ctx.planner
                 )
             ctx.candidates = cand
             ctx.instr.record(
@@ -188,7 +209,11 @@ class ScoreStage:
                 post_prune_capacity=int(cand.left.shape[0]),
             )
         with ctx.instr.phase("score"):
-            if impl in _KERNEL_MODES:
+            if subtraj is not None:
+                level_lcs, mss = _score_windowed(
+                    ctx.encoded, cand, ctx.betas, impl, subtraj
+                )
+            elif impl in _KERNEL_MODES:
                 level_lcs, mss = _score_with_kernel(
                     ctx.encoded, cand, ctx.betas, mode=_KERNEL_MODES[impl]
                 )
@@ -199,6 +224,36 @@ class ScoreStage:
                     wavefront_dtype=wavefront_dtype_from_env(),
                 )
             synchronize(mss)
+
+        if subtraj is not None:
+            # fold scored window pairs to trajectory pairs (max over
+            # windows); downstream stages and the result speak traj ids
+            with ctx.instr.phase("aggregate"):
+                tl, tr, tlvl, tmss = aggregate_window_pairs(
+                    _np(cand.left), _np(cand.right), _np(level_lcs), _np(mss),
+                    nw=subtraj[2],
+                )
+                ctx.similar_pairs = {
+                    (int(a), int(b))
+                    for a, b, m in zip(tl.tolist(), tr.tolist(), tmss > np.float32(cfg.rho))
+                    if m
+                }
+            dev = cand.left.device
+            ctx.scored = ScoredPairs(
+                left=torch.as_tensor(tl, device=dev),
+                right=torch.as_tensor(tr, device=dev),
+                level_lcs=torch.as_tensor(tlvl, device=dev),
+                mss=torch.as_tensor(tmss, device=dev),
+                count=torch.tensor(tl.shape[0], dtype=torch.int32, device=dev),
+                overflow=cand.overflow,
+            )
+            ctx.instr.record(
+                num_window_pairs=int(cand.count),
+                num_traj_pairs=int(tl.shape[0]),
+                num_similar=len(ctx.similar_pairs),
+                subtraj_windows=subtraj[2],
+            )
+            return
 
         left_np = _np(cand.left)
         right_np = _np(cand.right)
@@ -281,6 +336,56 @@ def prune_candidates(
         overflow=cand.overflow,
     )
     return pruned, int(valid.sum()) - len(idx)
+
+
+def _subtraj_of(cfg, max_len: int):
+    """``(window, stride, nw)`` of the subtrajectory mode, or None.
+
+    The effective window caps at the padded length (W >= L degenerates to
+    whole-trajectory) and ``nw`` derives from the PADDED length."""
+    if cfg.subtraj_window is None:
+        return None
+    return (
+        min(cfg.subtraj_window, max_len), cfg.subtraj_stride,
+        num_windows(max_len, cfg.subtraj_window, cfg.subtraj_stride),
+    )
+
+
+def _score_windowed(encoded, cand, betas, impl, subtraj):
+    """Windowed dispatch: pair ids are window ids; every impl family scores
+    the windowed [H, W] slices (the fused family masks in its kernel, the
+    kernel family slices via ``lcs_windowed``, the plain impls gather
+    windows)."""
+    if impl in _KERNEL_MODES:
+        return _score_windowed_with_kernel(
+            encoded, cand, betas, subtraj=subtraj, mode=_KERNEL_MODES[impl]
+        )
+    W, stride, nw = subtraj
+    return score_windowed_pairs(
+        encoded.codes, encoded.lengths, cand.left, cand.right, betas,
+        nw=nw, window=W, stride=stride, impl_name=impl,
+        wavefront_dtype=wavefront_dtype_from_env(),
+    )
+
+
+def _score_windowed_with_kernel(encoded, cand, betas, *, subtraj, mode="auto"):
+    """Windowed twin of :func:`_score_with_kernel`: decode (traj, offset)
+    from the window ids and run the batched LCS kernel over the sliced
+    ``[P*H, W]`` windows (``kernels/lcs/ops.lcs_windowed``)."""
+    W, stride, nw = subtraj
+    ta, oa = window_coords(cand.left, nw=nw, stride=stride)
+    tb, ob = window_coords(cand.right, nw=nw, stride=stride)
+    P = ta.shape[0]
+    H, L = encoded.codes.shape[1], encoded.codes.shape[2]
+    rep = lambda x: torch.repeat_interleave(x, H)  # noqa: E731
+    level_lcs = lcs_ops.lcs_windowed(
+        encoded.codes[ta].reshape(P * H, L),
+        encoded.codes[tb].reshape(P * H, L),
+        rep(oa), rep(ob),
+        rep(encoded.lengths[ta]), rep(encoded.lengths[tb]),
+        window=W, mode=mode, wavefront_dtype=wavefront_dtype_from_env(),
+    ).reshape(P, H)
+    return level_lcs, mss_scores(level_lcs, betas)
 
 
 def _score_with_kernel(encoded, cand, betas, *, mode="auto"):

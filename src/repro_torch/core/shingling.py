@@ -19,6 +19,7 @@ from math import comb
 import numpy as np
 import torch
 
+from repro_torch.core.subtraj import num_windows
 from repro_torch.core.types import PAD_KEY
 
 # Hard budget on C(max_len, k): the combination table materializes eagerly
@@ -35,7 +36,10 @@ def shingle_indices(max_len: int, k: int) -> np.ndarray:
         raise ValueError(
             f"C({max_len}, {k}) = {n_combos} shingle combinations exceeds "
             f"the budget of {MAX_SHINGLE_COMBOS}; shingling the full "
-            "trajectory at this length would exhaust host memory."
+            "trajectory at this length would exhaust host memory.  Use the "
+            "windowed subtrajectory mode instead — "
+            "EngineConfig(subtraj_window=W) shingles C(W, k) combinations "
+            "per sliding window."
         )
     combos = np.array(list(itertools.combinations(range(max_len), k)), dtype=np.int32)
     if combos.size == 0:
@@ -89,6 +93,36 @@ def shingles_from_types(
         dup[:, 1:] = keys[:, 1:] == keys[:, :-1]
         keys = torch.sort(torch.where(dup, PAD_KEY, keys), dim=-1).values
     return keys
+
+
+def windowed_types(
+    type_codes: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    window: int,
+    stride: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sliding-window view for the subtrajectory mode: [N, L] -> [N*nw, W].
+
+    Window j of row i (j < nw, see
+    :func:`repro_torch.core.subtraj.num_windows`) starts at offset
+    ``j * stride`` and holds ``clip(lengths[i] - j*stride, 0, W)`` valid
+    positions; every window of row i becomes its own virtual row
+    ``i * nw + j``, so the key machinery (``shingles_from_types``) runs
+    unchanged over the view — a window's keys are ``S = C(W, k)``
+    combinations instead of ``C(L, k)``.  Positions past a window's valid
+    length gather clamped garbage; callers mask by the returned window
+    lengths exactly as they mask full rows by ``lengths``.
+    """
+    n, L = type_codes.shape
+    W = min(window, L)
+    nw = num_windows(L, window, stride)
+    dev = type_codes.device
+    offs = torch.arange(nw, dtype=torch.int32, device=dev) * stride      # [nw]
+    pos = offs[:, None] + torch.arange(W, dtype=torch.int32, device=dev)  # [nw, W]
+    win = type_codes[:, pos.clamp(0, L - 1).long()]                       # [N, nw, W]
+    wlen = (lengths[:, None] - offs[None, :]).clamp(0, W)                 # [N, nw]
+    return win.reshape(n * nw, W), wlen.reshape(n * nw)
 
 
 def shingles(encoded_codes: torch.Tensor, lengths: torch.Tensor, *, k: int,

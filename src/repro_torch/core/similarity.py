@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
+from repro_torch.core.subtraj import window_coords
 from repro_torch.core.types import PAD_ID
 
 
@@ -131,6 +132,79 @@ def multi_level_lcs(
     a = repad(codes_a, len_a, PAD_CODE_A).reshape(P * H, L)
     b = repad(codes_b, len_b, PAD_CODE_B).reshape(P * H, L)
     return impl(a, b).reshape(P, H)
+
+
+def gather_windows(codes: torch.Tensor, off: torch.Tensor, window: int) -> torch.Tensor:
+    """Slice per-row windows out of gathered code rows.
+
+    codes [P, H, L], off [P] window start offsets -> [P, H, W] with
+    W = min(window, L).  Positions past ``L - 1`` clamp to the last column
+    (garbage); callers mask by the window's valid length — for any valid
+    position ``i < clip(len - off, 0, W)``, ``off + i < len <= L``, so the
+    clamp never corrupts a valid entry.
+    """
+    L = codes.shape[-1]
+    W = min(window, L)
+    pos = off[:, None, None] + torch.arange(W, dtype=torch.int32, device=codes.device)
+    pos = pos.clamp(0, L - 1).long()
+    return torch.gather(codes, -1, pos.expand(*codes.shape[:-1], W))
+
+
+def windowed_level_lcs(table_a, len_a, table_b, len_b, left, right, off_a, off_b,
+                       *, window: int, impl=None) -> torch.Tensor:
+    """|M_h| of the window slices: rows ``left``/``right`` of the tables
+    cut to ``[off, off + clip(len - off, 0, W))`` -> int32 [P, H], by
+    gathering the [P, H, W] windows and running the batched LCS ``impl``
+    (the wavefront by default) over length-W rows."""
+    W = min(window, table_a.shape[-1])
+    wla = (len_a[left] - off_a).clamp(0, W)
+    wlb = (len_b[right] - off_b).clamp(0, W)
+    return multi_level_lcs(
+        gather_windows(table_a[left], off_a, W), wla,
+        gather_windows(table_b[right], off_b, W), wlb, impl=impl,
+    )
+
+
+def score_windowed_pairs(
+    codes: torch.Tensor,
+    lengths: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    nw: int,
+    window: int,
+    stride: int = 1,
+    impl_name: str = "wavefront",
+    wavefront_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed ``score_pairs``: pair ids are WINDOW ids, not row ids.
+
+    codes [N, H, L], lengths [N], left/right [P] global window ids
+    (``traj = w // nw``, ``offset = (w % nw) * stride``) -> (level_lcs
+    [P, H], mss [P]) of the windowed slices.  Invalid slots (PAD_ID) are
+    clamped to window 0 of row 0.  The fused impls route to the
+    offset-aware fused scorer (the slices never materialize); "wavefront"
+    and "ref" gather the [P, H, W] windows and run the batched LCS over
+    length-W rows.
+    """
+    ta, oa = window_coords(left, nw=nw, stride=stride)
+    tb, ob = window_coords(right, nw=nw, stride=stride)
+    if impl_name.startswith("fused"):
+        from repro_torch.kernels.lcs import fused
+
+        return fused.fused_windowed_score(
+            codes, lengths, codes, lengths, ta, tb, oa, ob, betas,
+            window=window, mode=fused.FUSED_IMPL_MODES[impl_name],
+        )
+    if impl_name == "wavefront":
+        dt = torch.int8 if wavefront_dtype is None else wavefront_dtype
+        impl = lambda a, b: lcs_wavefront(a, b, dtype=dt)  # noqa: E731
+    else:
+        impl = {"ref": lcs_ref}[impl_name]
+    lv = windowed_level_lcs(codes, lengths, codes, lengths, ta, tb, oa, ob,
+                            window=window, impl=impl)
+    return lv, mss_scores(lv, betas)
 
 
 def mss_scores(level_lcs: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:

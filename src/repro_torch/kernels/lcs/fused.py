@@ -18,6 +18,14 @@ all H levels, and emits ``level_lcs [P, H]`` and ``mss [P]`` in one pass.
   batched over pairs, with the kernel's FMA-chain epilogue.
 * :func:`fused_score` — the dispatch wrapper of the pipeline.
 
+The subtrajectory mode's windowed twins take per-pair window offsets and
+score the ``[H, W]`` slice ``rows[:, off : off + clip(len - off, 0, W)]``
+of each side: :func:`fused_windowed_gather_score` (the Hopper kernel
+``kernels/csrc/fused_windowed_score.cu`` on a CUDA tensor, counted in
+``fused_windowed_gather_score.launches``),
+:func:`fused_windowed_gather_score_plain`, :func:`fused_windowed_score_ref`
+and the dispatch wrapper :func:`fused_windowed_score`.
+
 Two tables are taken (``table_a``/``table_b``) so the same kernel serves a
 shared table with pair indices and two operand stacks with iota indices.
 """
@@ -29,7 +37,9 @@ import torch
 
 from repro_torch.core.device import on_cuda
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
-from repro_torch.core.similarity import check_lcs_len, mss_scores, multi_level_lcs
+from repro_torch.core.similarity import (
+    check_lcs_len, mss_scores, multi_level_lcs, windowed_level_lcs,
+)
 from repro_torch.kernels import _build
 from repro_torch.kernels.lcs.kernel import SENT_SHIFT, SENT_WINDOW, threads_for
 
@@ -219,6 +229,154 @@ def fused_score(
         lvl, mss = fused_gather_score(
             table_a, len_a, table_b, len_b, left, right, betas
         )
+    if exact_mss:
+        mss = mss_scores(lvl, betas)
+    return lvl, mss
+
+
+# ---------------------------------------------------------------------------
+# windowed twins (subtrajectory mode)
+# ---------------------------------------------------------------------------
+def check_windowed(table_a, len_a, table_b, len_b, left, right, off_a, off_b,
+                   betas, window) -> tuple[int, int, int]:
+    """Validate the windowed operands; returns (P, H, L)."""
+    P, H, L = check_tables(table_a, len_a, table_b, len_b, left, right, betas)
+    if window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    for name, off in (("off_a", off_a), ("off_b", off_b)):
+        if off.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {off.dtype}")
+        if off.shape != (P,) or off.device != left.device:
+            raise ValueError(f"{name} must be [P] on the pairs' device")
+        # the kernel reads table[t, h, off + i]: an offset outside [0, L)
+        # would read outside the row
+        if P and (int(off.min()) < 0 or int(off.max()) >= L):
+            raise IndexError(f"{name} holds offsets outside [0, {L})")
+    return P, H, L
+
+
+def fused_windowed_gather_score_plain(
+    table_a, len_a, table_b, len_b, left, right, off_a, off_b, betas, *, window: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the windowed kernel, same contract: the
+    TPU kernel's scheme as written — each pair's full ``[H, L]`` rows, every
+    position outside ``[off, off + clip(len - off, 0, W))`` masked to the
+    side sentinel, the rolling-window wavefront over the masked rows."""
+    L = table_a.shape[-1]
+    W = min(window, L)
+    pos = torch.arange(L, dtype=torch.int32, device=table_a.device)
+
+    def masked(table, lengths, idx, off, pad):
+        wl = (lengths[idx] - off).clamp(0, W)
+        keep = (pos >= off[:, None]) & (pos < (off + wl)[:, None])
+        return torch.where(keep[:, None, :], table[idx], pad)
+
+    a = masked(table_a, len_a, left, off_a, PAD_CODE_A)
+    b = masked(table_b, len_b, right, off_b, PAD_CODE_B)
+    lvl = _masked_rows_lcs(a, b).to(torch.int32)
+    return lvl, mss_scores(lvl, betas)
+
+
+def _windowed_launcher():
+    fn = _build.load("fused_windowed_score").fused_windowed_score_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_windowed_gather_score(
+    table_a: torch.Tensor,
+    len_a: torch.Tensor,
+    table_b: torch.Tensor,
+    len_b: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    off_a: torch.Tensor,
+    off_b: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The raw windowed kernel call: tables + (traj, offset) coordinates.
+
+    As :func:`fused_gather_score`, except that left/right [P] index
+    TRAJECTORIES and off_a/off_b [P] int32 (in ``[0, L)``) are the window
+    start offsets: the scored operand is the [H, W] slice
+    ``rows[:, off : off + clip(len - off, 0, W)]``, W = min(window, L).
+    On a CUDA tensor: ``fused_windowed_score.cu`` (raises if the launch
+    fails).  On a CPU tensor: :func:`fused_windowed_gather_score_plain`.
+    """
+    P, H, L = check_windowed(table_a, len_a, table_b, len_b, left, right,
+                             off_a, off_b, betas, window)
+    if not on_cuda(left):
+        return fused_windowed_gather_score_plain(
+            table_a, len_a, table_b, len_b, left, right, off_a, off_b, betas,
+            window=window,
+        )
+    W = min(window, L)
+    ops = [t.contiguous() for t in (table_a, len_a, table_b, len_b, left, right,
+                                    off_a, off_b, betas)]
+    lvl = torch.empty((P, H), dtype=torch.int32, device=left.device)
+    mss = torch.empty((P,), dtype=torch.float32, device=left.device)
+    if P == 0:
+        return lvl, mss
+    err = _windowed_launcher()(
+        *(t.data_ptr() for t in ops), lvl.data_ptr(), mss.data_ptr(),
+        P, H, L, W, threads_for(W, _FUSED_THREADS),
+        torch.cuda.current_stream(left.device).cuda_stream,
+    )
+    _build.check(err, "fused_windowed_gather_score")
+    fused_windowed_gather_score.launches += 1
+    return lvl, mss
+
+
+fused_windowed_gather_score.launches = 0
+
+
+def fused_windowed_score_ref(
+    table_a, len_a, table_b, len_b, left, right, off_a, off_b, betas, *, window: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the windowed scorer: gather the [P, H, W] window slices
+    (``similarity.gather_windows``) and run the gather-then-score path over
+    length-W rows — bit-identical by construction to
+    ``score_windowed_pairs(..., impl_name="wavefront")``."""
+    lvl = windowed_level_lcs(table_a, len_a, table_b, len_b, left, right, off_a, off_b,
+                             window=window)
+    return lvl, mss_scores(lvl, betas)
+
+
+def fused_windowed_score(
+    table_a: torch.Tensor,
+    len_a: torch.Tensor,
+    table_b: torch.Tensor,
+    len_b: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    off_a: torch.Tensor,
+    off_b: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    window: int,
+    mode: str = "auto",
+    exact_mss: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed twin of :func:`fused_score`: the same dispatch modes and
+    ``exact_mss`` contract; pairs carry (traj, offset) coordinates."""
+    if mode not in _DISPATCH_MODES:
+        raise ValueError(
+            f"unknown fused dispatch mode {mode!r}; "
+            f"valid: {list(_DISPATCH_MODES)}"
+        )
+    args = (table_a, len_a, table_b, len_b, left, right, off_a, off_b, betas)
+    if mode == "ref" or (mode == "auto" and not on_cuda(left)):
+        return fused_windowed_score_ref(*args, window=window)
+    if mode == "interpret":
+        lvl, mss = fused_windowed_gather_score_plain(*args, window=window)
+    else:
+        lvl, mss = fused_windowed_gather_score(*args, window=window)
     if exact_mss:
         mss = mss_scores(lvl, betas)
     return lvl, mss

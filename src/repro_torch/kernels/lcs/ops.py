@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.device import on_cuda
+from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
 from repro_torch.core.similarity import lcs_wavefront, wavefront_dtype_from_env
 from repro_torch.kernels.lcs.kernel import lcs_kernel
 
@@ -79,3 +80,42 @@ def lcs(
             wavefront_dtype = wavefront_dtype_from_env()
         return lcs_wavefront(a, b, dtype=wavefront_dtype)
     return lcs_kernel(a, b, block_b=_block_for(B, block_b))
+
+
+def lcs_windowed(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    off_a: torch.Tensor,
+    off_b: torch.Tensor,
+    len_a: torch.Tensor,
+    len_b: torch.Tensor,
+    *,
+    window: int,
+    block_b: int = 512,
+    mode: str = "auto",
+    wavefront_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Subtrajectory LCS: full rows + per-row window coordinates -> [B].
+
+    a/b int32 [B, L] code rows with the table's native padding (no repad
+    needed), off_a/off_b [B] window start offsets, len_a/len_b [B] the
+    rows' TRUE lengths.  Each row is sliced to its
+    ``[off, off + clip(len - off, 0, window))`` window, sentinel-repadded to
+    width ``min(window, L)``, and dispatched through :func:`lcs` — so the
+    batched kernel runs over width-W rows instead of the full rows.
+    """
+    B, L = a.shape
+    W = min(window, L)
+    pos = torch.arange(W, dtype=torch.int32, device=a.device)
+
+    def slice_side(x, off, length, pad_code):
+        wlen = (length - off).clamp(0, W)
+        p = (off[:, None] + pos[None, :]).clamp(0, L - 1).long()
+        win = torch.gather(x, 1, p)
+        return torch.where(pos[None, :] < wlen[:, None], win, pad_code)
+
+    return lcs(
+        slice_side(a, off_a, len_a, PAD_CODE_A),
+        slice_side(b, off_b, len_b, PAD_CODE_B),
+        block_b=block_b, mode=mode, wavefront_dtype=wavefront_dtype,
+    )

@@ -15,18 +15,22 @@ import pytest
 import torch
 
 from repro_torch.api import AnotherMeEngine, EngineConfig
+from repro_torch.core.shingling import num_shingles
 from repro_torch.data import synthetic_setup
 from repro_torch.kernels.lcs import fused as tfused
 from repro_torch.kernels.lcs import kernel as tkernel
 from repro_torch.kernels.lcs import ops as tops
+from repro_torch.kernels.shingle import kernel as tshk
+from repro_torch.kernels.shingle import ops as tshingle
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("launches a Hopper kernel: needs a CUDA device (run on the H100)")
-    tkernel.lcs_kernel.launches = 0
-    tfused.fused_gather_score.launches = 0
+    for wrapper in (tkernel.lcs_kernel, tfused.fused_gather_score,
+                    tfused.fused_windowed_gather_score, tshk.shingle_kernel):
+        wrapper.launches = 0
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -99,3 +103,58 @@ def test_engine_kernel_impls_equal_cpu_engine(cuda):
         for field in ("left", "right", "level_lcs", "mss"):
             assert torch.equal(getattr(got.scored, field).cpu(), getattr(want.scored, field))
     assert tkernel.lcs_kernel.launches > 0 and tfused.fused_gather_score.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,window", [(20, 8), (10, 4), (9, 9), (12, 1)])
+def test_fused_windowed_kernel_equals_plain(cuda, L, window):
+    codes, lengths, left, right, betas = _world(1000, 3, L, 20_001, L + window, cuda)
+    rng = np.random.default_rng(window)
+    off_a = torch.as_tensor(rng.integers(0, L, size=20_001).astype(np.int32), device=cuda)
+    off_b = torch.as_tensor(rng.integers(0, L, size=20_001).astype(np.int32), device=cuda)
+    off_a[:7] = L - 1
+    args = (codes, lengths, codes, lengths, left, right, off_a, off_b, betas)
+    lvl, mss = tfused.fused_windowed_gather_score(*args, window=window)
+    assert tfused.fused_windowed_gather_score.launches == 1
+    torch.cuda.synchronize()
+    want_lvl, want_mss = tfused.fused_windowed_gather_score_plain(*args, window=window)
+    assert torch.equal(lvl, want_lvl)
+    assert torch.equal(mss, want_mss)
+    ref_lvl, _ = tfused.fused_windowed_score_ref(*args, window=window)
+    assert torch.equal(lvl, ref_lvl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,Q,L", [(3, 300, 10), (3, 300, 8), (4, 30, 12), (1, 7, 5)])
+def test_shingle_kernel_equals_plain(cuda, k, Q, L):
+    rng = np.random.default_rng(k + Q + L)
+    n = 30_001
+    lengths = torch.as_tensor(rng.integers(0, L + 1, size=n).astype(np.int32), device=cuda)
+    types = torch.as_tensor(rng.integers(0, Q, size=(n, L)).astype(np.int32), device=cuda)
+    types = torch.where(torch.arange(L, device=cuda) < lengths[:, None], types, -1)
+    s_pad = -(-num_shingles(L, k) // 128) * 128
+    got = tshk.shingle_kernel(types, lengths, k=k, num_types=Q, s_pad=s_pad)
+    assert tshk.shingle_kernel.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tshk.shingle_plain(types, lengths, k=k, num_types=Q, s_pad=s_pad))
+    keys = tshingle.shingle_keys(types, lengths, k=k, num_types=Q)
+    want = tshingle.shingle_keys(types.cpu(), lengths.cpu(), k=k, num_types=Q)
+    assert torch.equal(keys.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 64])
+def test_subtraj_engine_kernel_impls_equal_cpu_engine(cuda, window):
+    kw = dict(num_types=30, min_len=5, max_len=20, seed=0)
+    cpu_batch, forest = synthetic_setup(1500, device="cpu", **kw)
+    cfg = dict(subtraj_window=window, rho=2.0)
+    want = AnotherMeEngine(forest, EngineConfig(**cfg), device="cpu").run(cpu_batch)
+    batch, _ = synthetic_setup(1500, device=cuda, **kw)
+    for impl in ("kernel", "fused", "fused-pallas"):
+        got = AnotherMeEngine(forest, EngineConfig(lcs_impl=impl, **cfg), device=cuda).run(batch)
+        assert got.similar_pairs == want.similar_pairs
+        assert got.communities == want.communities
+        for field in ("left", "right", "level_lcs", "mss"):
+            assert torch.equal(getattr(got.scored, field).cpu(), getattr(want.scored, field))
+    assert tkernel.lcs_kernel.launches > 0
+    assert tfused.fused_windowed_gather_score.launches > 0

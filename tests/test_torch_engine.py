@@ -182,7 +182,7 @@ def test_cpu_engine_never_launches_kernels(worlds):
     (ExecutionPlan(autotune=True), EngineConfig()),
     (ExecutionPlan(delta_join="device"), EngineConfig()),
     (ExecutionPlan(overlap_chunks=2), EngineConfig()),
-    (ExecutionPlan(), EngineConfig(subtraj_window=4)),
+    (ExecutionPlan(n_shards=2), EngineConfig(subtraj_window=4)),
 ])
 def test_unported_features_raise_typed_errors(plan, config):
     _, forest = fig1_world(device=CPU)

@@ -23,10 +23,13 @@ from repro.kernels.lcs import fused as jfused
 from repro.kernels.lcs import kernel as jkernel
 from repro.kernels.lcs import ops as jops
 from repro.kernels.lcs.ref import lcs as jref
+from repro.kernels.shingle import ops as jshingle
 from repro_torch.kernels import _build
 from repro_torch.kernels.lcs import fused as tfused
 from repro_torch.kernels.lcs import kernel as tkernel
 from repro_torch.kernels.lcs import ops as tops
+from repro_torch.kernels.shingle import kernel as tshk
+from repro_torch.kernels.shingle import ops as tshingle
 
 
 def T(x):
@@ -43,11 +46,13 @@ def assert_same(got, want):
 @pytest.fixture
 def counts():
     """Launch counters reset around a test."""
-    tkernel.lcs_kernel.launches = 0
-    tfused.fused_gather_score.launches = 0
+    wrappers = (tkernel.lcs_kernel, tfused.fused_gather_score,
+                tfused.fused_windowed_gather_score, tshk.shingle_kernel)
+    for w in wrappers:
+        w.launches = 0
     yield
-    tkernel.lcs_kernel.launches = 0
-    tfused.fused_gather_score.launches = 0
+    for w in wrappers:
+        w.launches = 0
 
 
 def _sentinel_pad(a, b, la, lb):
@@ -252,10 +257,57 @@ def test_fused_wrappers_reject_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# shingle keys (port of shingle_pallas + ops.shingle_keys)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("k,Q,L", [(3, 30, 10), (3, 300, 16), (4, 30, 12), (2, 10, 8),
+                                   (1, 7, 5), (3, 300, 8)])
+def test_shingle_keys_match_pallas_interpret(k, Q, L, dedup, counts):
+    rng = np.random.default_rng(k * 1000 + Q + L)
+    n = 37
+    lengths = rng.integers(0, L + 1, size=n).astype(np.int32)
+    lengths[:3] = (0, L, k - 1)
+    types = rng.integers(0, Q, size=(n, L)).astype(np.int32)
+    types[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    want = jshingle.shingle_keys(jnp.asarray(types), jnp.asarray(lengths), k=k,
+                                 num_types=Q, block_b=32, dedup=dedup)
+    got = tshingle.shingle_keys(T(types), T(lengths), k=k, num_types=Q, dedup=dedup)
+    assert got.shape[1] % 128 == 0
+    assert_same(got, want)
+    assert tshk.shingle_kernel.launches == 0  # CPU tensors never launch
+
+
+def test_shingle_keys_agree_with_shingles_from_types():
+    """The op's first C(L, k) columns are ``shingles_from_types``' keys."""
+    from repro_torch.core.shingling import num_shingles, shingles_from_types
+
+    rng = np.random.default_rng(11)
+    types = T(rng.integers(0, 300, size=(200, 10)).astype(np.int32))
+    lengths = T(rng.integers(3, 11, size=200).astype(np.int32))
+    got = tshingle.shingle_keys(types, lengths, k=3, num_types=300)
+    S = num_shingles(10, 3)
+    assert torch.equal(got[:, :S], shingles_from_types(types, lengths, k=3, num_types=300))
+    assert bool((got[:, S:] == 2**31 - 1).all())
+
+
+def test_shingle_kernel_rejects_bad_operands():
+    types = torch.zeros((4, 6), dtype=torch.int32)
+    lengths = torch.full((4,), 6, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tshk.shingle_kernel(types.long(), lengths, k=3, num_types=5, s_pad=128)
+    with pytest.raises(ValueError, match="lengths"):
+        tshk.shingle_kernel(types, lengths[:2], k=3, num_types=5, s_pad=128)
+    with pytest.raises(ValueError, match="s_pad"):
+        tshk.shingle_kernel(types, lengths, k=3, num_types=5, s_pad=8)
+    with pytest.raises(ValueError, match="positive"):
+        tshk.shingle_kernel(types, lengths, k=0, num_types=5, s_pad=128)
+
+
+# ---------------------------------------------------------------------------
 # the build
 # ---------------------------------------------------------------------------
 def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
-    assert _build.sources() == ["fused_score", "lcs"]
+    assert _build.sources() == ["fused_score", "fused_windowed_score", "lcs", "shingle"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
