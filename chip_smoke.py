@@ -412,8 +412,10 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
     import numpy as np
 
     from repro_torch.core.encoding import encode_batch
+    from repro_torch.core.similarity import mss_scores
     from repro_torch.core.ssh import ssh_candidates
-    from repro_torch.core.subtraj import num_windows, window_coords
+    from repro_torch.core.subtraj import aggregate_window_pairs, num_windows, window_coords
+    from repro_torch.core.types import PAD_ID
     from repro_torch.data import synthetic_setup
     from repro_torch.kernels.lcs import fused
 
@@ -442,8 +444,10 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
           "subtraj: similar set disagrees with mss > rho")
 
     # the window buffer the engine scored (the join is deterministic): a
-    # slice re-scored by the kernel and by the plain version, bit-equal, and
-    # every window pair of the slice under its trajectory pair's maximum
+    # slice re-scored by the kernel and by the plain version, bit-equal; the
+    # plain scores folded by max-over-windows equal the engine's row for
+    # every trajectory pair whose window pairs all lie in the slice, and
+    # every other window pair of the slice is under its pair's maximum
     enc = encode_batch(batch, engine.tables)
     keys = engine.backend.join_keys(enc, batch, engine.backend_ctx)
     cand = ssh_candidates(keys, pair_capacity=st["pair_capacity"])
@@ -453,7 +457,6 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
     check(nw == st["subtraj_windows"], "subtraj: window count")
     ta, oa = window_coords(cand.left, nw=nw)
     tb, ob = window_coords(cand.right, nw=nw)
-    del cand
     coords = (enc.codes, enc.lengths, enc.codes, enc.lengths, ta, tb, oa, ob, engine.betas)
     s = slice(0, min(slice_pairs, ta.shape[0]))
     part = _pairs_slice(coords, s)
@@ -461,17 +464,38 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
     want_lvl, want_mss = fused.fused_windowed_gather_score_plain(*part, window=SUB_WINDOW)
     check(torch.equal(lvl, want_lvl) and torch.equal(mss, want_mss),
           "subtraj: window slice kernel != plain")
-    a, b = ta[s].cpu().numpy().astype(np.int64), tb[s].cpu().numpy().astype(np.int64)
-    cross = a != b
-    key = np.minimum(a, b)[cross] * n + np.maximum(a, b)[cross]
+
+    def pair_keys(wl, wr):  # (traj_lo * n + traj_hi) of cross-trajectory window pairs
+        valid = wl != PAD_ID
+        a, b = wl[valid].long() // nw, wr[valid].long() // nw
+        cross = a != b
+        return torch.minimum(a, b)[cross] * n + torch.maximum(a, b)[cross]
+
+    all_keys = pair_keys(cand.left, cand.right).sort().values
+    part_keys, part_counts = pair_keys(cand.left[s], cand.right[s]).unique(return_counts=True)
+    in_buffer = (torch.searchsorted(all_keys, part_keys, right=True)
+                 - torch.searchsorted(all_keys, part_keys))
+    whole = part_keys[in_buffer == part_counts].cpu().numpy()
+    del all_keys
+    fl, fr, flvl, fmss = aggregate_window_pairs(
+        cand.left[s].cpu().numpy(), cand.right[s].cpu().numpy(),
+        want_lvl.cpu().numpy(), mss_scores(want_lvl, engine.betas).cpu().numpy(), nw=nw)
+    del cand
+    fkey = fl.astype(np.int64) * n + fr
+    pick = np.isin(fkey, whole)
     agg = sc.left.cpu().numpy().astype(np.int64) * n + sc.right.cpu().numpy()
-    at = np.searchsorted(agg, key)
-    check(bool((agg[np.minimum(at, T - 1)] == key).all()),
+    at = np.searchsorted(agg, fkey)
+    check(bool((agg[np.minimum(at, T - 1)] == fkey).all()),
           "subtraj: a scored window pair has no trajectory pair")
-    check(bool((sc.mss.cpu().numpy()[at] >= mss.cpu().numpy()[cross]).all()),
+    check(pick.sum() == whole.size > 0, "subtraj: no whole trajectory pair in the slice")
+    check(np.array_equal(sc.level_lcs.cpu().numpy()[at[pick]], flvl[pick])
+          and np.array_equal(sc.mss.cpu().numpy()[at[pick]], fmss[pick]),
+          "subtraj: engine's fold != plain fold on the slice's whole pairs")
+    check(bool((sc.mss.cpu().numpy()[at] >= fmss).all()),
           "subtraj: a window pair beats its trajectory pair's maximum")
-    log(f"subtraj: slice of {s.stop} window pairs bit-equal to the plain version, "
-        f"each under its trajectory pair's max-over-windows mss")
+    log(f"subtraj: slice of {s.stop} window pairs bit-equal to the plain version; "
+        f"its fold equals the engine's row for {whole.size} of {fkey.size} trajectory "
+        f"pairs (all their window pairs in the slice), the rest under the engine's max")
     sub_types = (enc.codes[:, 0, :], enc.lengths)
     return counts, coords, sub_types
 

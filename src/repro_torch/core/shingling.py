@@ -19,7 +19,7 @@ from math import comb
 import numpy as np
 import torch
 
-from repro_torch.core.subtraj import num_windows
+from repro_torch.core.subtraj import num_windows, window_lengths
 from repro_torch.core.types import PAD_KEY
 
 # Hard budget on C(max_len, k): the combination table materializes eagerly
@@ -121,8 +121,8 @@ def windowed_types(
     offs = torch.arange(nw, dtype=torch.int32, device=dev) * stride      # [nw]
     pos = offs[:, None] + torch.arange(W, dtype=torch.int32, device=dev)  # [nw, W]
     win = type_codes[:, pos.clamp(0, L - 1).long()]                       # [N, nw, W]
-    wlen = (lengths[:, None] - offs[None, :]).clamp(0, W)                 # [N, nw]
-    return win.reshape(n * nw, W), wlen.reshape(n * nw)
+    wlen = window_lengths(lengths, max_len=L, window=window, stride=stride)
+    return win.reshape(n * nw, W), wlen
 
 
 def shingles(encoded_codes: torch.Tensor, lengths: torch.Tensor, *, k: int,

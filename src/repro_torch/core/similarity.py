@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
-from repro_torch.core.subtraj import window_coords
+from repro_torch.core.subtraj import slice_lengths, window_coords
 from repro_torch.core.types import PAD_ID
 
 
@@ -157,8 +157,8 @@ def windowed_level_lcs(table_a, len_a, table_b, len_b, left, right, off_a, off_b
     gathering the [P, H, W] windows and running the batched LCS ``impl``
     (the wavefront by default) over length-W rows."""
     W = min(window, table_a.shape[-1])
-    wla = (len_a[left] - off_a).clamp(0, W)
-    wlb = (len_b[right] - off_b).clamp(0, W)
+    wla = slice_lengths(len_a[left], off_a, W)
+    wlb = slice_lengths(len_b[right], off_b, W)
     return multi_level_lcs(
         gather_windows(table_a[left], off_a, W), wla,
         gather_windows(table_b[right], off_b, W), wlb, impl=impl,

@@ -58,9 +58,15 @@ def window_lengths(lengths, *, max_len: int, window: int, stride: int = 1):
     offs = np.arange(nw, dtype=np.int32) * stride
     if isinstance(lengths, torch.Tensor):
         offs = torch.as_tensor(offs, device=lengths.device)
-    w = min(window, max_len)
-    wl = (lengths[:, None] - offs[None, :]).clip(0, w)
-    return wl.reshape(-1)
+    return slice_lengths(lengths[:, None], offs[None, :], min(window, max_len)).reshape(-1)
+
+
+def slice_lengths(lengths, off, width: int):
+    """Valid positions of the window ``[off, off + width)`` of rows of
+    ``lengths`` positions: ``clip(lengths - off, 0, width)``, broadcast
+    (numpy or tensor).  ``width`` is the window already cut to the padded
+    length, ``min(W, L)``.  The one rule every windowed layer masks by."""
+    return (lengths - off).clip(0, width)
 
 
 def window_coords(ids: torch.Tensor, *, nw: int, stride: int = 1):

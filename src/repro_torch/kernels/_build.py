@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C launcher and compiles on its own
-with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``).  No PyTorch header is included, so
+Each ``csrc/<name>.cu`` exposes a plain C launcher and compiles on its own,
+with the shared ``csrc/*.cuh`` headers it includes, with ``nvcc`` for
+Hopper (``sm_90a``) into ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``).  No PyTorch header is included, so
 a build takes seconds, not minutes.  Only sources in this package are read.
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 
@@ -49,7 +50,9 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's key
+    files = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    src = b"".join(p.read_bytes() for p in files)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

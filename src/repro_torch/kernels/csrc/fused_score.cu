@@ -10,8 +10,7 @@
 // (-1 for side A, -2 for side B) in registers, runs the exact row DP over
 // all L x L cells of each of the H levels, writes |M_h|, and folds the MSS
 // epilogue as the forward FMA chain acc = fma(|M_h|, beta_h, acc) in h order
-// (__fmaf_rn, so the compiler cannot reorder or contract differently) — the
-// rounding order of the port's mss_scores, which matches the reference's.
+// (pair_dp.cuh, shared with the windowed scorer).
 // left/right arrive pre-clamped (no PAD_ID), as score_pairs passes them.
 //
 // Bound on an H100: the function must read each input once (two [N, H, L]
@@ -21,11 +20,12 @@
 // it (one op per cell at the 64 int32 lanes per SM).  The
 // simple design reads each pair's rows again per pair, uncoalesced (rows are
 // scattered by the pair indices), and keeps the b row and the DP row in
-// shared memory in a [L][blockDim] layout (this thread's column: dynamic
-// indexing without local-memory spills, neighbouring threads on neighbouring
-// banks).  The DP costs two shared loads and a store per cell; that work, not
-// the bytes, is what a later PR has to shrink.
+// shared memory in a [L][blockDim] layout (pair_dp.cuh).  The DP costs two
+// shared loads and a store per cell; that work, not the bytes, is what a
+// later PR has to shrink.
 #include <cuda_runtime.h>
+
+#include "pair_dp.cuh"
 
 namespace {
 
@@ -44,37 +44,11 @@ __global__ void fused_score_kernel(const int* __restrict__ table_a,
   const int tid = threadIdx.x;
   const long long p = static_cast<long long>(blockIdx.x) * nt + tid;
   if (p >= pairs) return;  // ragged last block; threads share no data
-  int* sb = smem;           // sb[j * nt + tid] = masked b row, level h
-  int* sdp = smem + L * nt; // sdp[j * nt + tid] = dp[i][j + 1]
   const long long li = left[p];
   const long long ri = right[p];
-  const int la = len_a[li];
-  const int lb = len_b[ri];
-  float acc = 0.0f;
-  for (int h = 0; h < H; ++h) {
-    const int* arow = table_a + (li * H + h) * L;
-    const int* brow = table_b + (ri * H + h) * L;
-    for (int j = 0; j < L; ++j) {
-      sb[j * nt + tid] = (j < lb) ? brow[j] : -2;
-      sdp[j * nt + tid] = 0;
-    }
-    for (int i = 0; i < L; ++i) {
-      const int ai = (i < la) ? arow[i] : -1;
-      int diag = 0;  // dp[i][j]
-      int left_v = 0;  // dp[i + 1][j]
-      for (int j = 0; j < L; ++j) {
-        const int up = sdp[j * nt + tid];  // dp[i][j + 1]
-        const int v = (ai == sb[j * nt + tid]) ? diag + 1 : max(up, left_v);
-        diag = up;
-        left_v = v;
-        sdp[j * nt + tid] = v;
-      }
-    }
-    const int lvl = sdp[(L - 1) * nt + tid];
-    level_lcs[p * H + h] = lvl;
-    acc = __fmaf_rn(static_cast<float>(lvl), betas[h], acc);
-  }
-  mss[p] = acc;
+  mss[p] = score_pair_levels(table_a + li * H * L, table_b + ri * H * L, L,
+                             len_a[li], len_b[ri], H, L, betas,
+                             level_lcs + p * H, smem, smem + L * nt, nt, tid);
 }
 
 }  // namespace

@@ -13,10 +13,9 @@
 // L: no read leaves the row), and runs the exact W x W row DP per level
 // instead of L x L: at L = 20, W = 8 that is 3 * 64 cells per pair, not
 // 3 * 400.  A length above L is clipped to L, as the masked full row is.
-// The MSS epilogue is the forward FMA chain acc = fma(|M_h|, beta_h, acc)
-// in h order (__fmaf_rn), the rounding order of the port's mss_scores.
-// left/right arrive pre-clamped (no PAD_ID) and offsets lie in [0, L): the
-// wrapper checks both.
+// The DP and the MSS epilogue are fused_score.cu's own (pair_dp.cuh), run
+// on the slices with W in place of L.  left/right arrive pre-clamped (no
+// PAD_ID) and offsets lie in [0, L): the wrapper checks both.
 //
 // Bound on an H100: the function must read each input once (the [N, H, L]
 // table and [N] lengths, four [P] coordinate vectors, H betas) and write
@@ -24,13 +23,11 @@
 // the subtrajectory path's shapes (N = 1e5, H = 3, L = 20, W = 8) the 192
 // cells a pair, at one int32 op per cell and 64 int32 lanes per SM, take
 // a little longer than the 32 bytes a pair of coordinates and outputs at
-// the HBM rate, so the integer work bounds it, narrowly.  The simple
-// design keeps fused_score.cu's layout: the b slice and the DP row in
-// shared memory as [W][blockDim] (this thread's column; dynamic indexing
-// without local-memory spills, neighbouring threads on neighbouring banks),
-// two shared loads and a store per cell, and per-pair row reads that are
-// scattered by the pair indices.
+// the HBM rate, so the integer work bounds it, narrowly.  Per-pair row
+// reads are scattered by the pair indices, as in fused_score.cu.
 #include <cuda_runtime.h>
+
+#include "pair_dp.cuh"
 
 namespace {
 
@@ -52,8 +49,6 @@ __global__ void fused_windowed_score_kernel(const int* __restrict__ table_a,
   const int tid = threadIdx.x;
   const long long p = static_cast<long long>(blockIdx.x) * nt + tid;
   if (p >= pairs) return;  // ragged last block; threads share no data
-  int* sb = smem;            // sb[j * nt + tid] = masked b slice, level h
-  int* sdp = smem + W * nt;  // sdp[j * nt + tid] = dp[i][j + 1]
   const long long li = left[p];
   const long long ri = right[p];
   const int oa = off_a[p];
@@ -61,31 +56,10 @@ __global__ void fused_windowed_score_kernel(const int* __restrict__ table_a,
   // window lengths: clip(min(len, L) - off, 0, W)
   const int wla = max(0, min(min(len_a[li], L) - oa, W));
   const int wlb = max(0, min(min(len_b[ri], L) - ob, W));
-  float acc = 0.0f;
-  for (int h = 0; h < H; ++h) {
-    const int* arow = table_a + (li * H + h) * L + oa;
-    const int* brow = table_b + (ri * H + h) * L + ob;
-    for (int j = 0; j < W; ++j) {
-      sb[j * nt + tid] = (j < wlb) ? brow[j] : -2;
-      sdp[j * nt + tid] = 0;
-    }
-    for (int i = 0; i < W; ++i) {
-      const int ai = (i < wla) ? arow[i] : -1;
-      int diag = 0;    // dp[i][j]
-      int left_v = 0;  // dp[i + 1][j]
-      for (int j = 0; j < W; ++j) {
-        const int up = sdp[j * nt + tid];  // dp[i][j + 1]
-        const int v = (ai == sb[j * nt + tid]) ? diag + 1 : max(up, left_v);
-        diag = up;
-        left_v = v;
-        sdp[j * nt + tid] = v;
-      }
-    }
-    const int lvl = sdp[(W - 1) * nt + tid];
-    level_lcs[p * H + h] = lvl;
-    acc = __fmaf_rn(static_cast<float>(lvl), betas[h], acc);
-  }
-  mss[p] = acc;
+  mss[p] = score_pair_levels(table_a + li * H * L + oa,
+                             table_b + ri * H * L + ob, L, wla, wlb, H, W,
+                             betas, level_lcs + p * H, smem, smem + W * nt,
+                             nt, tid);
 }
 
 }  // namespace

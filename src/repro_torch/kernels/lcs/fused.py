@@ -40,6 +40,7 @@ from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
 from repro_torch.core.similarity import (
     check_lcs_len, mss_scores, multi_level_lcs, windowed_level_lcs,
 )
+from repro_torch.core.subtraj import slice_lengths
 from repro_torch.kernels import _build
 from repro_torch.kernels.lcs.kernel import SENT_SHIFT, SENT_WINDOW, threads_for
 
@@ -267,7 +268,7 @@ def fused_windowed_gather_score_plain(
     pos = torch.arange(L, dtype=torch.int32, device=table_a.device)
 
     def masked(table, lengths, idx, off, pad):
-        wl = (lengths[idx] - off).clamp(0, W)
+        wl = slice_lengths(lengths[idx], off, W)
         keep = (pos >= off[:, None]) & (pos < (off + wl)[:, None])
         return torch.where(keep[:, None, :], table[idx], pad)
 

@@ -21,7 +21,10 @@ import torch
 
 from repro_torch.core.device import on_cuda
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
-from repro_torch.core.similarity import lcs_wavefront, wavefront_dtype_from_env
+from repro_torch.core.similarity import (
+    gather_windows, lcs_wavefront, repad, wavefront_dtype_from_env,
+)
+from repro_torch.core.subtraj import slice_lengths
 from repro_torch.kernels.lcs.kernel import lcs_kernel
 
 _MODES = ("auto", "pallas", "interpret", "wavefront")
@@ -91,7 +94,6 @@ def lcs_windowed(
     len_b: torch.Tensor,
     *,
     window: int,
-    block_b: int = 512,
     mode: str = "auto",
     wavefront_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
@@ -104,18 +106,14 @@ def lcs_windowed(
     width ``min(window, L)``, and dispatched through :func:`lcs` — so the
     batched kernel runs over width-W rows instead of the full rows.
     """
-    B, L = a.shape
-    W = min(window, L)
-    pos = torch.arange(W, dtype=torch.int32, device=a.device)
+    W = min(window, a.shape[1])
 
     def slice_side(x, off, length, pad_code):
-        wlen = (length - off).clamp(0, W)
-        p = (off[:, None] + pos[None, :]).clamp(0, L - 1).long()
-        win = torch.gather(x, 1, p)
-        return torch.where(pos[None, :] < wlen[:, None], win, pad_code)
+        win = gather_windows(x[:, None], off, W)[:, 0]
+        return repad(win, slice_lengths(length, off, W), pad_code)
 
     return lcs(
         slice_side(a, off_a, len_a, PAD_CODE_A),
         slice_side(b, off_b, len_b, PAD_CODE_B),
-        block_b=block_b, mode=mode, wavefront_dtype=wavefront_dtype,
+        mode=mode, wavefront_dtype=wavefront_dtype,
     )

@@ -317,7 +317,7 @@ def test_score_windowed_pairs_bit_equal(impl):
 @pytest.mark.parametrize("mode", ["auto", "pallas", "interpret", "wavefront"])
 def test_lcs_windowed_bit_equal(mode):
     rng = np.random.default_rng(0)
-    B, L, window = 33, 12, 5
+    B, L, window = 520, 12, 5  # "auto" takes the kernel wrapper from 512 rows
     a = rng.integers(0, 4, size=(B, L)).astype(np.int32)
     b = rng.integers(0, 4, size=(B, L)).astype(np.int32)
     len_a = rng.integers(0, L + 1, size=B).astype(np.int32)
@@ -326,5 +326,5 @@ def test_lcs_windowed_bit_equal(mode):
     off_b = rng.integers(0, L, size=B).astype(np.int32)
     args = (a, b, off_a, off_b, len_a, len_b)
     want = jops.lcs_windowed(*map(jnp.asarray, args), window=window, mode="wavefront")
-    got = tops.lcs_windowed(*map(T, args), window=window, mode=mode, block_b=16)
+    got = tops.lcs_windowed(*map(T, args), window=window, mode=mode)
     assert_same(got, want)
