@@ -30,6 +30,21 @@ phases, and exits non-zero if any phase fails:
    version there and on the subtrajectory world's window view.
 10. timing — each kernel and its plain version on its path's inputs (CUDA
    events), beside the least time the card could take.
+11. minhash kernel — the MinHash kernel against its plain version, bit-equal,
+   at edge shapes, on the main world's type codes and on the subtrajectory
+   world's window view.
+12. baselines — the paper's baselines on the card: "minhash", "brp" and
+   "udf" on the small world (and "minhash" in the subtrajectory mode)
+   against the plain CPU engine; fig10's accuracy world (2,000
+   trajectories): the port's centralized truth, QA1/QA2 of "ssh" (exactly
+   1.000), "minhash" and "brp" (their whole results equal to the CPU
+   engine's; "minhash" also through
+   ``run_anotherme(candidate_fn=minhash_candidates)``), and
+   ``udf_pipeline`` at fig7's 1,500 against the centralized set; "minhash"
+   on the scalability world at 1,000,000 trajectories (band keys against the
+   plain signatures', a slice re-scored); "brp" at 50,000 (the card's keys
+   against the CPU's); the centralized baseline at 10,000 against the SSH
+   engine (the paper's lossless claim).
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
@@ -74,6 +89,18 @@ SUB_KERNEL_N = 20_000
 SUB_SMALL_N = 2_000
 SUB_WINDOW = 8
 SUB_ROWS = dict(min_len=10, max_len=20)
+# the baselines: fig10's accuracy world at its GRID_FULL top point, fig7's
+# UDF cap on fig7's world, and fig13's world cut to each join's size
+FIG10_N = 2_000
+FIG10_WORLD = dict(num_types=10, classes_per_type=5, num_places=500)
+UDF_N = 1_500
+BRP_N = 50_000
+CENTRAL_N = 10_000
+MINHASH_PERMS, MINHASH_BANDS = 16, 4
+# int32 operations of one MinHash evaluation as the reference's formula
+# counts them: 4 multiplies, 4 mods, 2 adds, 2 folds (compare + select),
+# the mask select and the minimum
+MINHASH_OPS_PER_HASH = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -217,20 +244,22 @@ def phase_windowed_kernel(torch, dev, table_shape=(SUB_N, 3, 20), pairs=4_000_03
             "kernel's mss epilogue bit-equal to the plain version")
 
 
-def _engine(dev, forest, impl, **cfg):
+def _engine(dev, forest, impl, backend="ssh", **cfg):
     from repro_torch.api import AnotherMeEngine, EngineConfig
 
-    return AnotherMeEngine(forest, EngineConfig(backend="ssh", lcs_impl=impl, **cfg), device=dev)
+    return AnotherMeEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg), device=dev)
 
 
 def _wrappers():
     from repro_torch.kernels.lcs import fused, kernel
+    from repro_torch.kernels.minhash import kernel as minhash
     from repro_torch.kernels.shingle import kernel as shingle
 
     return {"lcs_kernel": kernel.lcs_kernel,
             "fused_gather_score": fused.fused_gather_score,
             "fused_windowed_gather_score": fused.fused_windowed_gather_score,
-            "shingle_kernel": shingle.shingle_kernel}
+            "shingle_kernel": shingle.shingle_kernel,
+            "minhash_kernel": minhash.minhash_kernel}
 
 
 def _counted(fn):
@@ -689,6 +718,289 @@ def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, main_types,
     return entries
 
 
+def phase_minhash_kernel(torch, dev, main_types, sub_types):
+    """The MinHash kernel against its plain version, bit-equal, at edge
+    shapes and at the shapes the MinHash backend hands it."""
+    import numpy as np
+
+    from repro_torch.core.minhash import hash_table
+    from repro_torch.core.shingling import windowed_types
+    from repro_torch.kernels.minhash import kernel
+
+    rng = np.random.default_rng(2)
+
+    def rows(n, L, high, lo_len=1):
+        t = rng.integers(0, high, size=(n, L)).astype(np.int32)
+        ln = rng.integers(lo_len, L + 1, size=n).astype(np.int32)
+        return torch.as_tensor(t, device=dev), torch.as_tensor(ln, device=dev)
+
+    same = torch.full((4096, 10), 7, dtype=torch.int32, device=dev)
+    cases = {
+        "N1": rows(1, 10, 30), "N67": rows(67, 10, 30), "N130": rows(130, 10, 30),
+        "lengths_0_and_1": rows(10_007, 10, 300, lo_len=0),
+        "length_1": (rows(5_001, 12, 300)[0], torch.ones(5_001, dtype=torch.int32, device=dev)),
+        "identical": (same, torch.full((4096,), 10, dtype=torch.int32, device=dev)),
+        "codes_2^20": rows(100_003, 10, 1 << 20, lo_len=0),
+    }
+    cases["lengths_0_and_1"][1][::2] = 0
+    cases["lengths_0_and_1"][1][1::4] = 1
+    for name, (t, ln) in cases.items():
+        for P in (1, 8, 16):
+            ab = hash_table(P, 0, dev)
+            got = kernel.minhash_kernel(t, ln, ab)
+            check(torch.equal(got, kernel.minhash_plain(t, ln, ab)),
+                  f"minhash kernel != plain on {name} num_perm={P}")
+        if name == "identical":
+            check(bool((got == got[0]).all()), "identical rows must give identical signatures")
+        if name == "codes_2^20":
+            check(float((got < 0).float().mean()) > 0.5, "the wrapped hash should be mostly negative")
+        log(f"minhash {name} {list(t.shape)}: kernel bit-equal to plain at num_perm 1, 8, 16")
+    ab = hash_table(MINHASH_PERMS, 0, dev)
+    windows = windowed_types(*sub_types, window=SUB_WINDOW)
+    for name, (t, ln) in (("main world", main_types), ("window view", windows)):
+        got = kernel.minhash_kernel(t, ln, ab)
+        check(torch.equal(got, kernel.minhash_plain(t, ln, ab)),
+              f"minhash kernel != plain on the {name}")
+        log(f"minhash {name} {list(t.shape)} num_perm={MINHASH_PERMS}: kernel bit-equal to plain")
+
+
+def phase_baselines_small(torch, dev, n=SMALL_N, sub_n=SUB_SMALL_N):
+    """"minhash", "brp" and "udf" on the card against the plain CPU engine."""
+    from repro_torch.data import synthetic_setup
+
+    cpu_batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device="cpu")
+    batch, _ = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    for backend in ("minhash", "brp", "udf"):
+        want = _engine("cpu", forest, "wavefront", backend, rho=RHO).run(cpu_batch)
+        res, counts = _run_counted(_engine(dev, forest, "fused", backend, rho=RHO), batch)
+        expect_launched(counts, ["fused_gather_score"]
+                        + (["minhash_kernel"] if backend == "minhash" else []))
+        _same_result(res, want, f"baselines small {backend}")
+        log(f"baselines small: N={n} {backend} on the card == CPU plain engine "
+            f"({want.stats['num_candidates']} candidates, {len(want.similar_pairs)} similar, "
+            f"launches {counts})")
+    cpu_batch, forest = synthetic_setup(sub_n, num_types=NUM_TYPES, seed=0, device="cpu", **SUB_ROWS)
+    batch, _ = synthetic_setup(sub_n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
+    cfg = dict(subtraj_window=SUB_WINDOW)
+    want = _engine("cpu", forest, "wavefront", "minhash", rho=RHO, **cfg).run(cpu_batch)
+    res, counts = _run_counted(
+        _engine(dev, forest, "fused", "minhash", rho=RHO, **cfg), batch)
+    expect_launched(counts, ["minhash_kernel", "fused_windowed_gather_score"])
+    _same_result(res, want, "baselines small minhash subtraj")
+    log(f"baselines small: N={sub_n} minhash subtraj_window={SUB_WINDOW} on the card == CPU "
+        f"plain engine ({want.stats['num_window_pairs']} window pairs, "
+        f"{len(want.similar_pairs)} similar)")
+
+
+def _centralized(dev, batch, forest):
+    """The port's centralized truth on ``dev``: (similar set, seconds)."""
+    from repro_torch.core import centralized_similar_pairs, encode_batch, forest_tables
+
+    t0 = time.perf_counter()
+    cl, cr, _ = centralized_similar_pairs(
+        encode_batch(batch, forest_tables(forest, device=dev)), rho=RHO)
+    pairs = {(int(a), int(b)) for a, b in zip(cl.tolist(), cr.tolist())}
+    return pairs, time.perf_counter() - t0
+
+
+def phase_accuracy(torch, dev, n=FIG10_N, udf_n=UDF_N):
+    """Fig. 10's accuracy point on the card, against the port's own
+    centralized truth; the UDF pipeline at fig7's cap."""
+    from repro_torch.core import (
+        AnotherMeConfig, maximal_cliques, minhash_candidates, qa1, qa2, run_anotherme,
+        type_codes, udf_pipeline,
+    )
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, **FIG10_WORLD, seed=0, device=dev)
+    cpu_batch, _ = synthetic_setup(n, **FIG10_WORLD, seed=0, device="cpu")
+    cen_pairs, secs = _centralized(dev, batch, forest)
+    cen_comms = maximal_cliques(cen_pairs)
+    check(len(cen_pairs) > 0, "fig10: empty centralized truth")
+    log(f"accuracy: fig10 N={n}: centralized on the card {len(cen_pairs)} similar pairs in "
+        f"{secs:.3f}s, {len(cen_comms)} maximal cliques")
+    qa = {}
+    for backend in ("ssh", "minhash", "brp"):
+        res, counts = _run_counted(_engine(dev, forest, "fused", backend, rho=RHO), batch)
+        expect_launched(counts, ["fused_gather_score"]
+                        + (["minhash_kernel"] if backend == "minhash" else []))
+        qa[backend] = (qa1(res.communities, cen_comms), qa2(res.similar_pairs, cen_pairs))
+        if backend == "ssh":
+            check(qa[backend] == (1.0, 1.0), f"fig10: ssh QA1/QA2 {qa[backend]} != 1.000")
+            check(res.similar_pairs == cen_pairs, "fig10: ssh similar set != centralized")
+        else:
+            cpu = _engine("cpu", forest, "wavefront", backend, rho=RHO).run(cpu_batch)
+            want = (qa1(cpu.communities, cen_comms), qa2(cpu.similar_pairs, cen_pairs))
+            check(qa[backend] == want, f"fig10: {backend} QA {qa[backend]} != CPU engine's {want}")
+            _same_result(res, cpu, f"fig10 {backend}")
+        log(f"accuracy: fig10 N={n} {backend}: QA1={qa[backend][0]:.3f} QA2={qa[backend][1]:.3f} "
+            f"({res.stats['num_candidates']} candidates, {len(res.similar_pairs)} similar)")
+        if backend == "minhash":
+            # the legacy entry point with the core candidate function
+            legacy, counts = _counted(lambda: run_anotherme(
+                batch, forest, AnotherMeConfig(rho=RHO, lcs_impl="fused"),
+                candidate_fn=lambda e, b: minhash_candidates(type_codes(e), b.lengths,
+                                                             pair_capacity=1 << 20)))
+            expect_launched(counts, ["minhash_kernel", "fused_gather_score"])
+            check(legacy.similar_pairs == res.similar_pairs and legacy.communities == res.communities,
+                  "fig10: run_anotherme(candidate_fn=minhash_candidates) != the minhash engine")
+            log(f"accuracy: fig10 N={n} run_anotherme(candidate_fn=minhash_candidates) on the card "
+                f"== the minhash engine ({len(legacy.similar_pairs)} similar, launches {counts})")
+    # the "user-defined" baseline at fig7's cap, on fig7's world
+    batch, forest = synthetic_setup(udf_n, seed=0, device=dev)
+    cen_pairs, _ = _centralized(dev, batch, forest)
+    t0 = time.perf_counter()
+    similar, _ = udf_pipeline(batch.places, batch.lengths, forest)
+    check(similar == cen_pairs and len(similar) > 0, "udf_pipeline != centralized similar set")
+    log(f"accuracy: fig7 N={udf_n}: udf_pipeline == centralized on the card "
+        f"({len(similar)} similar pairs, udf {time.perf_counter() - t0:.3f}s)")
+
+
+def _rescore_slice(torch, engine, batch, res, slice_pairs, tag):
+    """Re-score a slice of an engine's scored buffer with the plain version."""
+    from repro_torch.core.encoding import encode_batch
+    from repro_torch.core.types import PAD_ID
+    from repro_torch.kernels.lcs import fused
+
+    sc = res.scored
+    enc = encode_batch(batch, engine.tables)
+    valid = sc.left != PAD_ID
+    check(int(valid.sum()) == int(sc.count) == res.stats["num_candidates"] > 0, f"{tag}: pair count")
+    check(int(sc.overflow) == 0, f"{tag}: join overflowed")
+    check(bool(torch.isfinite(sc.mss).all()), f"{tag}: non-finite mss")
+    check(int((valid & (sc.mss > RHO)).sum()) == len(res.similar_pairs),
+          f"{tag}: similar set disagrees with mss > rho")
+    s = slice(0, min(slice_pairs, sc.left.shape[0]))
+    li = torch.where(sc.left[s] == PAD_ID, 0, sc.left[s])
+    ri = torch.where(sc.right[s] == PAD_ID, 0, sc.right[s])
+    want_lvl, want_mss = fused.fused_gather_score_plain(
+        enc.codes, enc.lengths, enc.codes, enc.lengths, li, ri, engine.betas)
+    check(torch.equal(sc.level_lcs[s], want_lvl) and torch.equal(sc.mss[s], want_mss),
+          f"{tag}: scored slice != plain")
+    log(f"{tag}: slice of {s.stop} scored pairs bit-equal to the plain version")
+    return enc
+
+
+def _scale_run(torch, dev, engine, batch, tag, kernels):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res, counts = _run_counted(engine, batch)
+    wall = time.perf_counter() - t0
+    expect_launched(counts, kernels)
+    _stats_line(tag, res, counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    log(f"{tag}: run wall {wall:.3f}s, peak device memory {peak:.2f} GiB")
+    return res, counts
+
+
+def phase_minhash_scale(torch, dev, n=MAIN_N, slice_pairs=1 << 20):
+    """fig7's protocol with backend="minhash" on the scalability world."""
+    from repro_torch.core.encoding import type_codes
+    from repro_torch.core.minhash import minhash_band_keys
+    from repro_torch.core.ssh import exact_pair_count
+    from repro_torch.kernels.minhash.ref import minhash_signatures
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    engine = _engine(dev, forest, "fused", "minhash", rho=RHO,
+                              community_mode="components")
+    tag = f"minhash N={n}"
+    res, counts = _scale_run(torch, dev, engine, batch, tag,
+                             ["minhash_kernel", "fused_gather_score"])
+    enc = _rescore_slice(torch, engine, batch, res, slice_pairs, tag)
+    keys = engine.backend.join_keys(enc, batch, engine.backend_ctx)
+    types = type_codes(enc)
+    want = minhash_band_keys(minhash_signatures(types, enc.lengths), bands=MINHASH_BANDS)
+    check(keys.shape == (n, MINHASH_BANDS) and torch.equal(keys, want),
+          f"{tag}: band keys != minhash_band_keys of the plain signatures")
+    log(f"{tag}: band keys {list(keys.shape)} bit-equal to the plain signatures' "
+        f"({exact_pair_count(keys)} pre-dedup pairs)")
+    return counts, (types.contiguous(), enc.lengths)
+
+
+def phase_brp_scale(torch, dev, n=BRP_N, slice_pairs=1 << 20):
+    """backend="brp" on the scalability world at the size its join allows;
+    the card's keys against the CPU's."""
+    from repro_torch.core.brp import projections, type_counts
+    from repro_torch.core.encoding import encode_batch, forest_tables, type_codes
+    from repro_torch.core.ssh import exact_pair_count
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    engine = _engine(dev, forest, "fused", "brp", rho=RHO, community_mode="components")
+    tag = f"brp N={n}"
+    res, _ = _scale_run(torch, dev, engine, batch, tag, ["fused_gather_score"])
+    enc = encode_batch(batch, engine.tables)
+    keys = engine.backend.join_keys(enc, batch, engine.backend_ctx).cpu()
+    cpu_batch, _ = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device="cpu")
+    cpu_enc = encode_batch(cpu_batch, forest_tables(forest, device="cpu"))
+    want = engine.backend.join_keys(cpu_enc, cpu_batch, engine.backend_ctx)
+    if not torch.equal(keys, want):
+        rows = torch.nonzero((keys != want).any(dim=1)).flatten()[:20].tolist()
+        r = torch.as_tensor(projections(NUM_TYPES, engine.backend.num_proj, engine.backend.seed))
+        for row in rows:
+            card = (type_counts(type_codes(enc)[row:row + 1], enc.lengths[row:row + 1], NUM_TYPES)
+                    @ r.to(dev)).cpu()
+            host = type_counts(type_codes(cpu_enc)[row:row + 1], cpu_enc.lengths[row:row + 1],
+                               NUM_TYPES) @ r
+            log(f"{tag}: key row {row} differs: card {keys[row].tolist()} proj "
+                f"{card.flatten().tolist()}, cpu {want[row].tolist()} proj {host.flatten().tolist()}")
+        check(False, f"{tag}: the card's bucket keys != the CPU's")
+    log(f"{tag}: bucket keys {list(keys.shape)} on the card == the CPU's "
+        f"({len(torch.unique(keys))} distinct, {exact_pair_count(keys)} pre-dedup pairs)")
+    _rescore_slice(torch, engine, batch, res, slice_pairs, tag)
+
+
+def phase_centralized_scale(torch, dev, n=CENTRAL_N):
+    """The centralized baseline on the card against the SSH engine: the
+    paper's lossless claim (QA2 = 1.000)."""
+    from repro_torch.core import qa2
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    cen_pairs, cen_secs = _centralized(dev, batch, forest)
+    t0 = time.perf_counter()
+    res = _engine(dev, forest, "fused", rho=RHO, community_mode="components").run(batch)
+    ssh_secs = time.perf_counter() - t0
+    check(len(cen_pairs) > 0 and res.similar_pairs == cen_pairs,
+          f"centralized N={n}: similar set != the SSH engine's")
+    log(f"centralized N={n}: {n * (n - 1) // 2} pairs, {len(cen_pairs)} similar, equal to the "
+        f"SSH engine's (QA2={qa2(res.similar_pairs, cen_pairs):.3f}); wall: centralized "
+        f"{cen_secs:.3f}s, SSH engine {ssh_secs:.3f}s")
+
+
+def phase_timing_minhash(torch, minhash_types, minhash_counts):
+    from repro_torch.core.minhash import hash_table
+    from repro_torch.kernels.minhash import kernel
+
+    types, lengths = minhash_types
+    N, L = types.shape
+    P = MINHASH_PERMS
+    ab = hash_table(P, 0, types.device)
+    run = lambda: kernel.minhash_kernel(types, lengths, ab)  # noqa: E731
+    ms = _time_ms(torch, run)
+    plain = lambda: kernel.minhash_plain(types, lengths, ab)  # noqa: E731
+    plain_ms = _time_ms(torch, plain, reps=3)
+    err = float((run().long() - plain().long()).abs().max())
+    # each input read once, the output written once; the hash is evaluated
+    # at the rows' valid positions only
+    hashes = int(lengths.clamp(0, L).sum()) * P
+    bound, by = _bound_ms(N * (L + 1) * 4 + P * 8 + N * P * 4, hashes * MINHASH_OPS_PER_HASH)
+    log(f"timing minhash_kernel: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+        f"by {by}: {hashes} hashes x {MINHASH_OPS_PER_HASH} int32 operations); library_ms: "
+        "no single PyTorch call computes the wrapped hash and row minimum")
+    return [dict(
+        name="minhash_kernel", route="cuda",
+        source="src/repro_torch/kernels/csrc/minhash.cu",
+        replaces="src/repro/kernels/minhash/kernel.py:65",
+        launches=minhash_counts["minhash_kernel"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        path=f"minhash: MinHash engine N={MAIN_N} (keys phase)",
+        shape=f"types {list(types.shape)} num_perm {P}",
+    )]
+
+
 def main() -> int:
     import torch
 
@@ -723,6 +1035,16 @@ def main() -> int:
     entries += phase_timing_windowed_and_shingle(
         torch, sub_coords, sub_counts, main_types, shingle_counts
     )
+    del sub_coords
+    phase_minhash_kernel(torch, dev, main_types, sub_types)
+    del main_types, sub_types
+    phase_baselines_small(torch, dev)
+    phase_accuracy(torch, dev)
+    minhash_counts, minhash_types = phase_minhash_scale(torch, dev)
+    entries += phase_timing_minhash(torch, minhash_types, minhash_counts)
+    del minhash_types
+    phase_brp_scale(torch, dev)
+    phase_centralized_scale(torch, dev)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -6,8 +6,9 @@
     result = engine.run(batch)        # .similar_pairs / .communities / .stats
 """
 from repro_torch.api.backends import (
-    BackendContext, CandidateBackend, SSHBackend, available_backends,
-    get_backend, register_backend,
+    BackendContext, BRPBackend, CallableBackend, CandidateBackend,
+    MinHashBackend, SSHBackend, UDFBackend, available_backends, get_backend,
+    register_backend,
 )
 from repro_torch.api.capacity import CapacityPlanner
 from repro_torch.api.engine import AnotherMeEngine, EngineConfig, EngineResult, ExecutionPlan

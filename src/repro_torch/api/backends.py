@@ -2,32 +2,42 @@
 
 Phase (ii) of the paper's pipeline — "which trajectory pairs are worth
 scoring?" — is the phase the paper varies across its approaches.  Each
-variant is a :class:`CandidateBackend` selected by registry name.  The port
-registers the paper's own join:
+variant is a :class:`CandidateBackend` selected by registry name:
 
   "ssh"      k-sequential-shingle hashing (the AnotherMe join; lossless)
-
-The JAX package's "minhash", "brp" and "udf" backends are not ported yet,
-and asking for them raises like any unknown name, listing what is
-registered.
+  "minhash"  MinHashLSH over the type presence set (Spark's built-in;
+             discards order and repetition, so it loses accuracy); the
+             signatures come from the Hopper kernel on the card
+  "brp"      Bucketed Random Projection of the type count vector
+             (discards order entirely: the worst accuracy)
+  "udf"      the paper's "user-defined" black box: the same shingle keys
+             as "ssh", built row-at-a-time in host Python
 
 Every backend reduces to PAD_KEY-padded int32 join keys ``[N, S]`` — pairs
 sharing any key become candidates via the same sort-merge join.  In the
 subtrajectory mode (``BackendContext.window`` set) the key rows are the
 trajectories' sliding windows instead (:func:`_windowed_view`), so the join
-emits candidate pairs of window ids.
+emits candidate pairs of window ids.  A backend that cannot express itself
+as keys (a legacy ``candidate_fn``, :class:`CallableBackend`) returns no
+keys and produces its candidates itself.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core.brp import brp_bucket_keys
+from repro_torch.core.device import to_numpy
 from repro_torch.core.encoding import type_codes
+from repro_torch.core.minhash import minhash_band_keys
 from repro_torch.core.shingling import shingles_from_types, windowed_types
 from repro_torch.core.ssh import exact_pair_count, ssh_candidates
-from repro_torch.core.types import CandidatePairs, EncodedBatch, TrajectoryBatch
+from repro_torch.core.types import PAD_KEY, CandidatePairs, EncodedBatch, TrajectoryBatch
+from repro_torch.kernels.minhash.ops import minhash_signatures
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,16 +73,26 @@ class CandidateBackend:
     """Protocol/base for candidate generation.
 
     Subclasses implement :meth:`join_keys` (the shared join and capacity
-    planner then apply) or override :meth:`candidates` directly.
+    planner then apply), or keep the base one, which returns None, and
+    override :meth:`candidates` directly.
     """
 
     name: str = "?"
 
+    @property
+    def supports_sharded(self) -> bool:
+        """Whether the backend produces join keys.  The JAX package runs
+        such backends sharded and key-less ones on one device only; the port
+        is single-device, and the engine reads the flag to refuse key-less
+        backends in the subtrajectory mode."""
+        return type(self).join_keys is not CandidateBackend.join_keys
+
     def join_keys(
         self, encoded: EncodedBatch, batch: TrajectoryBatch, ctx: BackendContext
-    ) -> torch.Tensor:
-        """PAD_KEY-padded int32 join keys [N, S]."""
-        raise NotImplementedError
+    ) -> torch.Tensor | None:
+        """PAD_KEY-padded int32 join keys [N, S], or None for a key-less
+        backend."""
+        return None
 
     def expected_pairs(self, keys: torch.Tensor) -> int:
         """Exact pre-dedup join cardinality, for capacity planning."""
@@ -105,6 +125,94 @@ class SSHBackend(CandidateBackend):
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class MinHashBackend(CandidateBackend):
+    """MinHashLSH over type presence sets (Spark's built-in; section V.1).
+
+    The signatures go through ``kernels/minhash/ops.minhash_signatures``,
+    the port's one signature entry point: the Hopper kernel on the card, its
+    plain version on the CPU, both the function the JAX backend keys with.
+    """
+
+    num_perm: int = 16
+    bands: int = 4
+    seed: int = 0
+    name: str = dataclasses.field(default="minhash", init=False)
+
+    def join_keys(self, encoded, batch, ctx):
+        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
+        sig = minhash_signatures(types, lengths, num_perm=self.num_perm, seed=self.seed)
+        return minhash_band_keys(sig, bands=self.bands)
+
+
+@dataclasses.dataclass(frozen=True)
+class BRPBackend(CandidateBackend):
+    """Bucketed Random Projection of type count vectors (section V.1)."""
+
+    num_proj: int = 4
+    bucket_length: float = 2.0
+    seed: int = 0
+    name: str = dataclasses.field(default="brp", init=False)
+
+    def join_keys(self, encoded, batch, ctx):
+        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
+        return brp_bucket_keys(
+            types, lengths,
+            num_types=ctx.num_types, num_proj=self.num_proj,
+            bucket_length=self.bucket_length, seed=self.seed,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class UDFBackend(CandidateBackend):
+    """The "user-defined" black box: shingle keys built row-at-a-time in
+    host Python (the same base-Q pack as "ssh", so the results are
+    identical), invisible to every kernel; the keys then go to the engine's
+    device for the shared join."""
+
+    name: str = dataclasses.field(default="udf", init=False)
+
+    def join_keys(self, encoded, batch, ctx):
+        q, k = ctx.num_types, ctx.k
+        if q**k >= 2**31:
+            raise ValueError(
+                f"Q**k = {q}**{k} overflows int32; use a smaller k or Q."
+            )
+        # the black box stays a row-at-a-time loop over host rows; in the
+        # subtrajectory mode only its input view changes
+        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
+        types, lengths = to_numpy(types), to_numpy(lengths)
+        per_row: list[set[int]] = []
+        for i in range(types.shape[0]):
+            row = types[i, : lengths[i]].tolist()
+            keys = set()
+            for combo in itertools.combinations(row, k):
+                key = 0
+                for c in combo:
+                    key = key * q + int(c)
+                keys.add(key)
+            per_row.append(keys)
+        s = max(1, max((len(r) for r in per_row), default=1))
+        out = np.full((types.shape[0], s), PAD_KEY, np.int32)
+        for i, keys in enumerate(per_row):
+            out[i, : len(keys)] = sorted(keys)
+        return torch.as_tensor(out, device=encoded.codes.device)
+
+
+class CallableBackend(CandidateBackend):
+    """Adapter for legacy ``candidate_fn(encoded, batch) -> CandidatePairs``
+    callables (the escape hatch of ``run_anotherme``); key-less, so the
+    subtrajectory mode refuses it."""
+
+    name = "callable"
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def candidates(self, encoded, batch, ctx, *, pair_capacity):
+        return self._fn(encoded, batch)
+
+
 _REGISTRY: dict[str, Callable[..., CandidateBackend]] = {}
 
 
@@ -120,7 +228,7 @@ def available_backends() -> tuple[str, ...]:
 
 def get_backend(name: str, **options) -> CandidateBackend:
     """Instantiate a registered backend by name; ``options`` go to its
-    factory."""
+    factory (e.g. ``get_backend("minhash", num_perm=32, bands=8)``)."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -132,3 +240,6 @@ def get_backend(name: str, **options) -> CandidateBackend:
 
 
 register_backend("ssh", SSHBackend)
+register_backend("minhash", MinHashBackend)
+register_backend("brp", BRPBackend)
+register_backend("udf", UDFBackend)

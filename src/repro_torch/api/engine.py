@@ -10,11 +10,15 @@
 The engine composes the typed stages of api/stages.py — Encode, Candidate,
 Score, Communities — on one device.  It runs on the card unless the caller
 passes ``device="cpu"`` (the CPU tests do); without a card the default
-raises.  ``EngineConfig(subtraj_window=W, subtraj_stride=s)`` runs the
-subtrajectory mode: candidates and scores over sliding windows, folded to
-trajectory pairs by max-over-windows (see ``core/subtraj.py``).  The JAX
-engine's sharded execution, autotuning and streaming knobs are not ported
-yet and raise :class:`NotPortedError`.
+raises.  ``EngineConfig(backend=...)`` picks the candidate join: "ssh" (the
+paper's lossless join) or one of the paper's baselines, "minhash" (keys
+from the Hopper MinHash kernel on the card), "brp" and "udf"; a legacy
+``candidate_fn`` goes in as a :class:`CallableBackend`.
+``EngineConfig(subtraj_window=W, subtraj_stride=s)`` runs the subtrajectory
+mode: candidates and scores over sliding windows, folded to trajectory
+pairs by max-over-windows (see ``core/subtraj.py``), with every key-based
+backend.  The JAX engine's sharded execution, autotuning and streaming
+knobs are not ported yet and raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ from repro_torch.api.stages import (
 )
 from repro_torch.core.device import resolve_device
 from repro_torch.core.encoding import SemanticForest, forest_tables
+from repro_torch.core.pipeline import AnotherMeResult as EngineResult
 from repro_torch.core.similarity import default_betas
-from repro_torch.core.types import ScoredPairs, TrajectoryBatch
+from repro_torch.core.types import TrajectoryBatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,16 +78,6 @@ class ExecutionPlan:
     delta_join: str = "host"
     autotune: bool = False
     overlap_chunks: int = 1
-
-
-@dataclasses.dataclass
-class EngineResult:
-    """Pipeline output: scored pairs + the paper's two result sets."""
-
-    scored: ScoredPairs
-    similar_pairs: set
-    communities: set
-    stats: dict
 
 
 class AnotherMeEngine:
@@ -137,7 +132,7 @@ class AnotherMeEngine:
                 raise ValueError(
                     f"subtraj_stride must be positive, got {config.subtraj_stride}"
                 )
-            if type(self.backend).join_keys is CandidateBackend.join_keys:
+            if not self.backend.supports_sharded:
                 raise ValueError(
                     f"candidate backend {self.backend.name!r} produces no "
                     "join keys; the subtrajectory mode needs key-based "

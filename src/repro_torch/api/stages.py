@@ -144,9 +144,12 @@ class EncodeStage:
 
 
 class CandidateStage:
-    """Phase (ii): join keys + candidate pairs via the configured backend,
-    through the shared sort-merge join with planned capacity and overflow
-    retries."""
+    """Phase (ii): join keys + candidate pairs via the configured backend.
+
+    Key-based backends go through the shared sort-merge join with planned
+    capacity and overflow retries; key-less backends (legacy callables)
+    produce CandidatePairs directly.
+    """
 
     name = "candidates"
 
@@ -154,16 +157,24 @@ class CandidateStage:
         backend, instr = ctx.backend, ctx.instr
         with instr.phase("keys"):
             keys = backend.join_keys(ctx.encoded, ctx.batch, ctx.backend_ctx)
-            synchronize(keys)
+            if keys is not None:
+                synchronize(keys)
         ctx.keys = keys
 
         with instr.phase("join"):
-            cap = ctx.config.pair_capacity
-            if cap is None:
-                cap = ctx.planner.initial_capacity(backend.expected_pairs(keys))
-            cand, cap = ctx.planner.run_with_retry(
-                lambda c: ssh_candidates(keys, pair_capacity=c), cap
-            )
+            if keys is None:
+                cand = backend.candidates(
+                    ctx.encoded, ctx.batch, ctx.backend_ctx,
+                    pair_capacity=ctx.config.pair_capacity or 0,
+                )
+                cap = int(cand.left.shape[0])
+            else:
+                cap = ctx.config.pair_capacity
+                if cap is None:
+                    cap = ctx.planner.initial_capacity(backend.expected_pairs(keys))
+                cand, cap = ctx.planner.run_with_retry(
+                    lambda c: ssh_candidates(keys, pair_capacity=c), cap
+                )
             synchronize(cand.left)
         ctx.candidates = cand
         instr.record(

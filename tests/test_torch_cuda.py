@@ -15,11 +15,15 @@ import pytest
 import torch
 
 from repro_torch.api import AnotherMeEngine, EngineConfig
+from repro_torch.core import minhash_candidates, run_anotherme, type_codes
+from repro_torch.core.brp import brp_bucket_keys
 from repro_torch.core.shingling import num_shingles
 from repro_torch.data import synthetic_setup
 from repro_torch.kernels.lcs import fused as tfused
 from repro_torch.kernels.lcs import kernel as tkernel
 from repro_torch.kernels.lcs import ops as tops
+from repro_torch.kernels.minhash import kernel as tmhk
+from repro_torch.kernels.minhash import ops as tminhash
 from repro_torch.kernels.shingle import kernel as tshk
 from repro_torch.kernels.shingle import ops as tshingle
 
@@ -29,7 +33,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("launches a Hopper kernel: needs a CUDA device (run on the H100)")
     for wrapper in (tkernel.lcs_kernel, tfused.fused_gather_score,
-                    tfused.fused_windowed_gather_score, tshk.shingle_kernel):
+                    tfused.fused_windowed_gather_score, tshk.shingle_kernel,
+                    tmhk.minhash_kernel):
         wrapper.launches = 0
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -158,3 +163,64 @@ def test_subtraj_engine_kernel_impls_equal_cpu_engine(cuda, window):
             assert torch.equal(getattr(got.scored, field).cpu(), getattr(want.scored, field))
     assert tkernel.lcs_kernel.launches > 0
     assert tfused.fused_windowed_gather_score.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,Q,num_perm", [(1, 10, 30, 16), (67, 10, 30, 8), (130, 12, 1 << 20, 1),
+                                            (50_001, 10, 300, 16), (20_003, 8, 1 << 20, 16)])
+def test_minhash_kernel_equals_plain(cuda, n, L, Q, num_perm):
+    rng = np.random.default_rng(n + L + num_perm)
+    lengths = torch.as_tensor(rng.integers(0, L + 2, size=n).astype(np.int32), device=cuda)
+    types = torch.as_tensor(rng.integers(0, Q, size=(n, L)).astype(np.int32), device=cuda)
+    got = tminhash.minhash_signatures(types, lengths, num_perm=num_perm)
+    assert tmhk.minhash_kernel.launches == 1
+    torch.cuda.synchronize()
+    want = tminhash.minhash_signatures(types.cpu(), lengths.cpu(), num_perm=num_perm)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,window", [("minhash", None), ("brp", None), ("udf", None),
+                                            ("minhash", 8)])
+def test_baseline_engines_equal_cpu_engine(cuda, backend, window):
+    kw = dict(num_types=30, min_len=5, max_len=20 if window else 10, seed=0)
+    cpu_batch, forest = synthetic_setup(1500, device="cpu", **kw)
+    cfg = dict(backend=backend, subtraj_window=window, lcs_impl="fused")
+    want = AnotherMeEngine(forest, EngineConfig(**cfg), device="cpu").run(cpu_batch)
+    batch, _ = synthetic_setup(1500, device=cuda, **kw)
+    got = AnotherMeEngine(forest, EngineConfig(**cfg), device=cuda).run(batch)
+    assert got.similar_pairs == want.similar_pairs
+    assert got.communities == want.communities
+    for field in ("left", "right", "level_lcs", "mss"):
+        assert torch.equal(getattr(got.scored, field).cpu(), getattr(want.scored, field))
+    assert (tmhk.minhash_kernel.launches > 0) == (backend == "minhash")
+
+
+@pytest.mark.cuda
+def test_run_anotherme_minhash_candidates_launches_kernel(cuda):
+    kw = dict(num_types=30, min_len=5, max_len=10, seed=0)
+    fn = lambda e, b: minhash_candidates(type_codes(e), b.lengths, pair_capacity=1 << 18)  # noqa: E731
+    cpu_batch, forest = synthetic_setup(1500, device="cpu", **kw)
+    want = run_anotherme(cpu_batch, forest, candidate_fn=fn)
+    assert tmhk.minhash_kernel.launches == 0
+    batch, _ = synthetic_setup(1500, device=cuda, **kw)
+    got = run_anotherme(batch, forest, candidate_fn=fn)
+    assert tmhk.minhash_kernel.launches > 0
+    assert got.similar_pairs == want.similar_pairs
+    assert got.communities == want.communities
+
+
+@pytest.mark.cuda
+def test_brp_keys_refuse_tf32(cuda):
+    rng = np.random.default_rng(5)
+    types = torch.as_tensor(rng.integers(0, 300, size=(20_000, 10)).astype(np.int32), device=cuda)
+    lengths = torch.as_tensor(rng.integers(1, 11, size=20_000).astype(np.int32), device=cuda)
+    want = brp_bucket_keys(types.cpu(), lengths.cpu(), num_types=300)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="needs full float32 matmul"):
+            brp_bucket_keys(types, lengths, num_types=300)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(brp_bucket_keys(types, lengths, num_types=300).cpu(), want)

@@ -21,7 +21,10 @@ from repro_torch.api import (
     LCS_IMPLS, AnotherMeEngine, CapacityPlanner, EngineConfig, ExecutionPlan,
     NotPortedError, available_backends, get_backend, lcs_impl_fn,
 )
-from repro_torch.core import qa1, qa2
+from repro_torch.core import centralized_similar_pairs as t_centralized_similar_pairs
+from repro_torch.core import encode_batch as t_encode_batch
+from repro_torch.core import forest_tables as t_forest_tables
+from repro_torch.core import maximal_cliques, qa1, qa2
 from repro_torch.core.similarity import lcs_wavefront
 from repro_torch.data import fig1_world, synthetic_setup
 from repro_torch.kernels.lcs import fused as tfused
@@ -130,16 +133,21 @@ def test_fig1_story():
 @pytest.mark.parametrize("impl", ["wavefront", "fused"])
 def test_quickstart_qa_is_exact(impl):
     """examples/quickstart.py's accuracy check on its 400-trajectory
-    subsample: the port's SSH engine recovers the centralized ground truth
-    (the JAX package's all-pairs baseline) with QA1 = QA2 = 1.000."""
+    subsample: the port's SSH engine recovers the port's own centralized
+    ground truth (all-pairs baseline) with QA1 = QA2 = 1.000, and that truth
+    is the JAX package's."""
     jsub, jf = jdata.synthetic_setup(400, seed=0)
-    cl, cr, _ = centralized_similar_pairs(encode_batch(jsub, forest_tables(jf)), rho=2.0)
-    cen = {(int(a), int(b)) for a, b in zip(cl, cr)}
+    jl, jr, _ = centralized_similar_pairs(encode_batch(jsub, forest_tables(jf)), rho=2.0)
     sub, forest = synthetic_setup(400, seed=0, device=CPU)
+    cl, cr, _ = t_centralized_similar_pairs(
+        t_encode_batch(sub, t_forest_tables(forest, device=CPU)), rho=2.0)
+    cen = {(int(a), int(b)) for a, b in zip(cl, cr)}
+    assert cen == {(int(a), int(b)) for a, b in zip(jl, jr)}
     res = AnotherMeEngine(forest, EngineConfig(backend="ssh", rho=2.0, lcs_impl=impl),
                           device=CPU).run(sub)
     assert len(cen) > 0
     assert qa1(res.communities, j_maximal_cliques(cen)) == 1.0
+    assert qa1(res.communities, maximal_cliques(cen)) == 1.0
     assert qa2(res.similar_pairs, cen) == 1.0
     assert res.similar_pairs == cen
 
@@ -191,9 +199,9 @@ def test_unported_features_raise_typed_errors(plan, config):
 
 
 def test_registry_and_option_errors():
-    assert available_backends() == ("ssh",)
-    with pytest.raises(ValueError, match=r"registered backends: \['ssh'\]"):
-        get_backend("minhash")
+    assert available_backends() == ("brp", "minhash", "ssh", "udf")
+    with pytest.raises(ValueError, match=r"registered backends: \['brp', 'minhash', 'ssh', 'udf'\]"):
+        get_backend("lsh-forest")
     with pytest.raises(NotPortedError):
         CapacityPlanner(autotune=True)
     assert CapacityPlanner().plan_tuning(1024, 3, 10) is None
