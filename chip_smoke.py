@@ -45,6 +45,23 @@ phases, and exits non-zero if any phase fails:
    plain signatures', a slice re-scored); "brp" at 50,000 (the card's keys
    against the CPU's); the centralized baseline at 10,000 against the SSH
    engine (the paper's lossless claim).
+13. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
+   against their plain versions at edge shapes (ragged lengths, head dims
+   64/80/128, GQA 1 and 4, causal and not, float32 and bfloat16; SSD
+   states 64 and 128) and the chunked SSD scan against its plain version.
+14. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
+   the card against the same run on the CPU.
+15. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
+   published widths (random bfloat16 weights from a seed) serve 4 prompts
+   of 2,048 tokens and 32 greedy tokens each: the prefill launches #6 9
+   (zamba2) and 40 (granite) times and #7 54 times (zamba2); the first
+   call's kernel operands are rerun through the plain versions; prefill
+   and two teacher-forced decode steps are held against ``forward``.
+   Each also profiles one prefill and 8 decode steps (device busy and
+   idle shares, device time by kernel kind).
+16. lm timing — #6 at both models' operands and at prefill_32k's length,
+   beside its plain version and ``scaled_dot_product_attention``; #7 at
+   zamba2's operands.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
@@ -76,6 +93,11 @@ H100_SMS = 132
 INT32_LANES_PER_SM = 64
 BOOST_CLOCK_HZ = 1.98e9
 INT32_OPS_PER_S = H100_SMS * INT32_LANES_PER_SM * BOOST_CLOCK_HZ
+# the data sheet's dense bf16 tensor-core rate and float32 rate outside the
+# tensor cores (the bounds of the flash-attention kernel, on bf16 operands,
+# and of the SSD kernel, whose reference products are float32)
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 MAIN_N = 1_000_000
 KERNEL_N = 200_000
@@ -101,6 +123,13 @@ MINHASH_PERMS, MINHASH_BANDS = 16, 4
 # counts them: 4 multiplies, 4 mods, 2 adds, 2 folds (compare + select),
 # the mask select and the minimum
 MINHASH_OPS_PER_HASH = 16
+# LM serving: 4 requests of a 2,048-token prompt (a multiple of ssm_chunk
+# = 128 and of chunked_attention's 1,024), 32 greedy tokens each; the
+# decode-vs-forward check runs forward over 128 more tokens
+LM_BATCH, LM_PROMPT, LM_GEN, LM_EXTRA = 4, 2048, 32, 128
+LM_MAX_LEN = LM_PROMPT + LM_GEN
+LM_LOGITS_ATOL = 5e-2
+PREFILL_32K = 32_768
 
 
 class SmokeFailure(RuntimeError):
@@ -254,12 +283,16 @@ def _wrappers():
     from repro_torch.kernels.lcs import fused, kernel
     from repro_torch.kernels.minhash import kernel as minhash
     from repro_torch.kernels.shingle import kernel as shingle
+    from repro_torch.kernels.attention import kernel as attention
+    from repro_torch.kernels.ssd import kernel as ssd
 
     return {"lcs_kernel": kernel.lcs_kernel,
             "fused_gather_score": fused.fused_gather_score,
             "fused_windowed_gather_score": fused.fused_windowed_gather_score,
             "shingle_kernel": shingle.shingle_kernel,
-            "minhash_kernel": minhash.minhash_kernel}
+            "minhash_kernel": minhash.minhash_kernel,
+            "flash_attention_kernel": attention.flash_attention_kernel,
+            "ssd_intra": ssd.ssd_intra}
 
 
 def _counted(fn):
@@ -585,9 +618,9 @@ def _time_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def _bound_ms(nbytes, ops):
+def _bound_ms(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1001,6 +1034,411 @@ def phase_timing_minhash(torch, minhash_types, minhash_counts):
     )]
 
 
+# ---------------------------------------------------------------------------
+# LM serving: flash attention (#6) and the SSD intra-chunk step (#7)
+# ---------------------------------------------------------------------------
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def _ssd_operands(torch, dev, BC, Q, H, P, N, dtype, rng):
+    """Intra-chunk operands with the model's ranges: dt in U(1e-3, 1e-1),
+    A = -U(1, 16) (init_params' A_log), x, B, C standard normal."""
+    import numpy as np
+
+    dt = rng.uniform(1e-3, 1e-1, size=(BC, Q, H)).astype(np.float32)
+    cum = np.cumsum(dt * -rng.uniform(1.0, 16.0, size=H).astype(np.float32), axis=1)
+    x, B_, C_ = (rng.normal(size=sh).astype(np.float32) for sh in ((BC, Q, H, P), (BC, Q, N), (BC, Q, N)))
+
+    def on(a, t=torch.float32):
+        return torch.as_tensor(a, device=dev).to(t)
+
+    return on(x, dtype), on(cum), on(dt), on(B_, dtype), on(C_, dtype)
+
+
+def phase_lm_kernels(torch, dev):
+    """Kernels #6 and #7 against their plain versions on the card at edge
+    shapes: float32 within 1e-4, bfloat16 attention within 3e-2."""
+    import numpy as np
+
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    rng = np.random.default_rng(0)
+    worst, n = {}, 0
+    for S in (1, 65, 1000):
+        for D in (64, 80, 128):
+            for rep in (1, 4):
+                base = [torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+                        for sh in ((2, S, 2 * rep, D), (2, S, 2, D), (2, S, 2, D))]
+                for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+                    q, k, v = (t.to(dtype) for t in base)
+                    for causal in (True, False):
+                        got = attn.flash_attention_kernel(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        err = _max_err(got, attn.flash_attention_plain(q, k, v, causal=causal))
+                        what = f"flash attention S={S} D={D} rep={rep} {dtype} causal={causal}"
+                        check(got.dtype == dtype and got.shape == q.shape, f"{what}: {got.dtype} {tuple(got.shape)}")
+                        check(err <= tol, f"{what}: max |kernel - plain| {err} > {tol}")
+                        worst[dtype] = max(worst.get(dtype, 0.0), err)
+                        n += 1
+    log(f"flash_attention_kernel: {n} edge cases (S 1/65/1000, D 64/80/128, rep 1/4, causal and "
+        f"not) within tolerance; worst float32 {worst[torch.float32]:.3g}, "
+        f"bfloat16 {worst[torch.bfloat16]:.3g}")
+    for N in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = _ssd_operands(torch, dev, 8, 128, 16, 64, N, dtype, rng)
+            got = ssd.ssd_intra(*ops)
+            torch.cuda.synchronize()
+            errs = [_max_err(g, w) for g, w in zip(got, ssd.ssd_intra_plain(*ops))]
+            check(max(errs) <= 1e-4, f"ssd_intra N={N} {dtype}: max |kernel - plain| (y, state, "
+                  f"cdecay) {errs} > 1e-4")
+            log(f"ssd_intra Q=128 N={N} P=64 {dtype}: y, state, cdecay within 1e-4 of the plain "
+                f"version ({max(errs):.3g})")
+    B, S, H, P, N = 2, 512, 16, 64, 64
+    x, Bm, Cm = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+                 for sh in ((B, S, H, P), (B, S, 1, N), (B, S, 1, N)))
+    dt = torch.as_tensor(rng.uniform(1e-3, 1e-1, size=(B, S, H)).astype(np.float32), device=dev)
+    A = -torch.as_tensor(rng.uniform(1.0, 16.0, size=H).astype(np.float32), device=dev)
+    D = torch.as_tensor(rng.normal(size=H).astype(np.float32), device=dev)
+    y, st = ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    ry, rst = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    errs = [_max_err(y, ry), _max_err(st, rst)]
+    check(max(errs) <= 1e-4, f"ssd_chunked S={S} (4 chunks): max |op - ref| (y, state) {errs} > 1e-4")
+    log(f"ssd_chunked S={S}, 4 chunks: y and final state within 1e-4 of the plain scan ({max(errs):.3g})")
+
+
+def _to(tree, where):
+    """A parameter tree moved to a device or cast to a dtype."""
+    return {k: _to(v, where) if isinstance(v, dict) else v.to(where) for k, v in tree.items()}
+
+
+def _lm_kernels(cfg):
+    return (["flash_attention_kernel"] if cfg.family != "ssm" else []) + \
+        (["ssd_intra"] if cfg.family != "dense" else [])
+
+
+def phase_lm_small(torch, dev):
+    """Reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on the card
+    (prefill of 32 tokens, two decode steps) against the same run on the
+    CPU (the plain versions): logits within 5e-2."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.serve_step import make_decode_step, prefill_with_cache
+
+    for arch in ("granite-3-8b", "mamba2-1.3b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, 0, "cpu")
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 34)))
+
+        def serve(p, device):
+            with torch.inference_mode():
+                t = tokens.to(device)
+                lp, cache = prefill_with_cache(p, t[:, :32], cfg, 40)
+                step = make_decode_step(cfg)
+                out = [lp]
+                for i in (32, 33):
+                    ld, cache = step(p, cache, t[:, i:i + 1])
+                    out.append(ld)
+                return torch.cat(out, dim=1).cpu()
+
+        want = serve(params, torch.device("cpu"))
+        on_card = _to(params, dev)
+        got, counts = _counted(lambda: serve(on_card, dev))
+        expect_launched(counts, _lm_kernels(cfg))
+        V = cfg.vocab_size
+        err = _max_err(got[..., :V], want[..., :V])
+        check(err <= LM_LOGITS_ATOL, f"lm small {arch}: card vs CPU logits differ by {err}")
+        log(f"lm small {arch} (reduced): prefill + 2 decode steps on the card = the CPU run "
+            f"(max |logits diff| {err:.3g}), launches { {k: counts[k] for k in _lm_kernels(cfg)} }")
+
+
+def _kernel_kind(name):
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "flash_attention (#6)"
+    if "ssd_intra" in n:
+        return "ssd_intra (#7)"
+    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk", "sm90_")):
+        return "matmul (cuBLAS)"
+    if any(w in n for w in ("copy", "memcpy", "memset", "fill")):
+        return "copies and casts"
+    if "reduce" in n:
+        return "reductions"
+    return "elementwise and other"
+
+
+def _profiled_split(torch, fn, tag):
+    """Run ``fn`` under ``torch.profiler`` and log the host wall, the
+    device's busy and idle shares and the device time by kernel kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = _kernel_kind(e.name)
+            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by.values())
+    check(busy > 0, f"{tag}: the profiler saw no device time")
+    parts = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    log(f"{tag} (profiled): host wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%): {parts}")
+
+
+class _Capture:
+    """Records the operands of the first call of a kernel wrapper, as the
+    op module calls it (the wrapper still counts its launch)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args, self.kwargs = module, name, None, None
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            if self.args is None:
+                self.args, self.kwargs = args, kwargs
+            return real(*args, **kwargs)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_lm_full(torch, dev, arch, expect):
+    """One registered model at its full published width, random bfloat16
+    weights from a seed: 4 prompts of 2,048 tokens prefilled into a cache
+    of 2,080 positions, then 32 greedy tokens.  The prefill must launch the
+    kernels ``expect`` times; one layer's kernel operands are rerun through
+    the plain versions; the prefill logits and two teacher-forced decode
+    steps are held against ``forward`` over the same tokens: the prefill
+    within 5e-2, each decode step within 5e-2 more than the bfloat16
+    forward's own distance from a float32 forward of the same weights."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward, init_params, padded_vocab, param_count
+    from repro_torch.serve.kvcache import cache_bytes
+    from repro_torch.serve.serve_step import make_decode_step, prefill_with_cache
+
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    tag = f"lm {arch} full"
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, V, (LM_BATCH, LM_PROMPT + LM_EXTRA)), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode(), _Capture(attn_ops, "flash_attention_kernel") as fa, \
+            _Capture(ssd_ops, "ssd_intra") as si:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, cache), counts = _counted(
+            lambda: prefill_with_cache(params, tokens[:, :LM_PROMPT], cfg, LM_MAX_LEN))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    got = {k: counts[k] for k in expect}
+    check(got == expect, f"{tag}: prefill launches {got}, expected {expect}")
+    check(logits.shape == (LM_BATCH, 1, padded_vocab(cfg)) and bool(torch.isfinite(logits[..., :V]).all()),
+          f"{tag}: prefill logits {tuple(logits.shape)}")
+    operands = {}
+    if "flash_attention_kernel" in expect:
+        q, k, v = fa.args
+        causal = fa.kwargs.get("causal", True)
+        err = _max_err(attn.flash_attention_kernel(q, k, v, causal=causal),
+                       attn.flash_attention_plain(q, k, v, causal=causal))
+        check(err <= 3e-2, f"{tag}: flash attention at the path's operands differs from plain by {err}")
+        log(f"{tag}: flash attention at its first call's operands q {list(q.shape)} k {list(k.shape)} "
+            f"{q.dtype}: within 3e-2 of the plain version ({err:.3g})")
+        operands["flash_attention_kernel"] = (q, k, v, causal)
+    if "ssd_intra" in expect:
+        ops = si.args
+        errs = [_max_err(g, w) for g, w in zip(ssd.ssd_intra(*ops), ssd.ssd_intra_plain(*ops))]
+        check(max(errs) <= 1e-4, f"{tag}: ssd_intra at the path's operands differs from plain by {errs}")
+        log(f"{tag}: ssd_intra at its first call's operands x {list(ops[0].shape)} {ops[0].dtype}, "
+            f"B {list(ops[3].shape)}: y, state, cdecay within 1e-4 of the plain version ({max(errs):.3g})")
+        operands["ssd_intra"] = ops
+
+    with torch.inference_mode():
+        step = make_decode_step(cfg)
+        tf_cache = {k: t.clone() for k, t in cache.items()}
+        served = [logits[:, -1, :V]]  # prefill, then two teacher-forced decode steps
+        for t in (LM_PROMPT, LM_PROMPT + 1):
+            ld, tf_cache = step(params, tf_cache, tokens[:, t:t + 1])
+            served.append(ld[:, -1, :V])
+        del tf_cache
+
+        tok = logits[:, -1:, :V].argmax(dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = []
+        for _ in range(LM_GEN):
+            ld, cache = step(params, cache, tok)
+            tok = ld[:, :, :V].argmax(dim=-1)
+            gen.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    check(int(cache["pos"]) == LM_MAX_LEN, f"{tag}: cache at {int(cache['pos'])} after decode")
+    gen = torch.cat(gen, dim=1)
+    check(bool(((gen >= 0) & (gen < V)).all()), f"{tag}: generated ids out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cb = cache_bytes(cfg, LM_BATCH, LM_MAX_LEN)
+    log(f"{tag}: {param_count(cfg)} parameters (bf16, init {init_s:.3f} s); prefill {LM_BATCH} x "
+        f"{LM_PROMPT} tokens {prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s), "
+        f"launches {got}; decode {LM_GEN} greedy steps {decode_s:.3f} s "
+        f"({decode_s / LM_GEN * 1e3:.2f} ms a step for {LM_BATCH} requests); cache {cb} bytes; "
+        f"peak device memory {peak:.2f} GiB; request 0 generated {gen[0, :8].tolist()}...")
+    del cache, logits
+    with torch.inference_mode():
+        state = {}
+        _profiled_split(torch, lambda: state.update(zip(("logits", "cache"), prefill_with_cache(
+            params, tokens[:, :LM_PROMPT], cfg, LM_MAX_LEN))), f"{tag} prefill")
+        tok = state["logits"][:, -1:, :V].argmax(dim=-1)
+
+        steps = min(8, LM_GEN)  # the cache has room for LM_GEN more tokens
+
+        def decode():
+            for _ in range(steps):
+                step(params, state["cache"], tok)
+
+        _profiled_split(torch, decode, f"{tag} decode, {steps} steps")
+        del state
+
+    # decode vs forward over the same tokens.  At these widths two bfloat16
+    # computations of the same logits differ by more than 5e-2 (the bfloat16
+    # forward is ~0.1 from a float32 forward of the same weights), so the
+    # decode steps are held to a float32 forward: no more than 5e-2 further
+    # from it than the bfloat16 forward is.  The prefill equals forward.
+    at = slice(LM_PROMPT - 1, LM_PROMPT + 2)
+    with torch.inference_mode():
+        fwd16 = forward(params, {"tokens": tokens}, cfg)[0][:, at, :V].clone()
+        p32 = _to(params, torch.float32)
+        del params
+        layers.COMPUTE_DTYPE = torch.float32  # activations follow it
+        try:
+            fwd32 = forward(p32, {"tokens": tokens}, cfg)[0][:, at, :V].clone()
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        del p32
+    vs16 = [_max_err(served[i], fwd16[:, i]) for i in range(3)]
+    vs32 = [_max_err(served[i], fwd32[:, i]) for i in range(3)]
+    floor = [_max_err(fwd16[:, i], fwd32[:, i]) for i in range(3)]
+    check(vs16[0] <= LM_LOGITS_ATOL, f"{tag}: prefill logits vs forward {vs16[0]} > 5e-2")
+    check(all(vs32[i] <= floor[i] + LM_LOGITS_ATOL for i in (1, 2)),
+          f"{tag}: decode vs float32 forward {vs32[1:]} exceeds the bfloat16 forward's "
+          f"{floor[1:]} + 5e-2")
+    log(f"{tag}: max |logits diff| over positions {LM_PROMPT - 1}..{LM_PROMPT + 1} (prefill, two "
+        f"teacher-forced decode steps): vs forward {[float(f'{e:.4g}') for e in vs16]}; vs a float32 "
+        f"forward {[float(f'{e:.4g}') for e in vs32]}, where the bfloat16 forward is "
+        f"{[float(f'{e:.4g}') for e in floor]} (logits max |.| {float(fwd32.abs().max()):.3f})")
+    return counts, operands
+
+
+def _causal_pairs(Sq, Skv):
+    """(query, key) pairs a causal row mask q >= k keeps, Sq queries from 0."""
+    if Sq <= Skv:
+        return Sq * (Sq + 1) // 2
+    return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
+
+
+def _flash_row(torch, q, k, v, causal, launches, path):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as attn
+
+    run = lambda: attn.flash_attention_kernel(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: attn.flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal, enable_gqa=True)
+    ms, plain_ms, library_ms = _time_ms(torch, run), _time_ms(torch, plain, reps=3), _time_ms(torch, lib)
+    out = run()
+    err = _max_err(out, plain())
+    lib_err = _max_err(out, lib().transpose(1, 2))
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    pairs = B * H * (_causal_pairs(Sq, Skv) if causal else Sq * Skv)
+    flops = 4 * D * pairs  # q.k and p.v, 2 flops a multiply-add
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    log(f"timing flash_attention_kernel [{path}] q {list(q.shape)} k {list(k.shape)}: {ms:.3f} ms "
+        f"(plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound:.4f} ms by {by}: "
+        f"{flops:.3g} flops at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s; max |kernel - sdpa| {lib_err:.3g}")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms, path=path,
+                shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}"
+                      f" causal={causal}")
+
+
+def phase_timing_lm(torch, dev, zamba, granite):
+    """#6 at zamba2's and granite's layer operands and at prefill_32k's
+    length (B = 1, S = 32,768, granite's heads); #7 at zamba2's operands."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd import kernel as ssd
+
+    (z_counts, z_ops), (g_counts, g_ops) = zamba, granite
+    main = _flash_row(torch, *z_ops["flash_attention_kernel"], z_counts["flash_attention_kernel"],
+                      f"zamba2-2.7b prefill {LM_BATCH} x {LM_PROMPT}")
+    rows = [_flash_row(torch, *g_ops["flash_attention_kernel"], g_counts["flash_attention_kernel"],
+                       f"granite-3-8b prefill {LM_BATCH} x {LM_PROMPT}")]
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev).to(torch.bfloat16)
+               for sh in ((1, PREFILL_32K, 32, 128), (1, PREFILL_32K, 8, 128), (1, PREFILL_32K, 8, 128)))
+    rows.append(_flash_row(torch, q, k, v, True, 0, "prefill_32k's length, granite's heads (timing only)"))
+    del q, k, v
+    flash = dict(name="flash_attention_kernel", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/attention/kernel.py:111", **main, rows=rows)
+
+    ops = z_ops["ssd_intra"]
+    x, _, _, B_, _ = ops
+    BC, Q, H, P = x.shape
+    N = B_.shape[-1]
+    run = lambda: ssd.ssd_intra(*ops)  # noqa: E731
+    plain = lambda: ssd.ssd_intra_plain(*ops)  # noqa: E731
+    ms, plain_ms = _time_ms(torch, run), _time_ms(torch, plain, reps=3)
+    err = max(_max_err(g, w) for g, w in zip(run(), plain()))
+    tri = Q * (Q + 1) // 2
+    # C B^T once a chunk (lower triangle), then per chunk and head M x over
+    # the causal pairs and the state x^T (B w); 2 flops a multiply-add
+    flops = 2 * BC * tri * N + 2 * BC * H * (tri * P + Q * P * N)
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + 4 * (x.numel() + BC * H * P * N + BC * H)
+    bound, by = _bound_ms(nbytes, flops, FP32_FLOPS)
+    log(f"timing ssd_intra [zamba2-2.7b prefill] x {list(x.shape)} N={N}: {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by}: {flops:.3g} flops at 67 TFLOP/s fp32, "
+        f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s; library_ms: no single PyTorch "
+        "call computes the masked decayed product and the chunk states")
+    ssd_entry = dict(
+        name="ssd_intra", route="cuda", source="src/repro_torch/kernels/csrc/ssd_intra.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:69", launches=z_counts["ssd_intra"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        path=f"zamba2-2.7b prefill {LM_BATCH} x {LM_PROMPT}",
+        shape=f"x {list(x.shape)} {str(x.dtype).removeprefix('torch.')} N={N}")
+    return [flash, ssd_entry]
+
+
 def main() -> int:
     import torch
 
@@ -1045,6 +1483,14 @@ def main() -> int:
     del minhash_types
     phase_brp_scale(torch, dev)
     phase_centralized_scale(torch, dev)
+    phase_lm_kernels(torch, dev)
+    phase_lm_small(torch, dev)
+    zamba = phase_lm_full(torch, dev, "zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54})
+    torch.cuda.empty_cache()
+    granite = phase_lm_full(torch, dev, "granite-3-8b", {"flash_attention_kernel": 40})
+    torch.cuda.empty_cache()
+    entries += phase_timing_lm(torch, dev, zamba, granite)
+    del zamba, granite
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -1,0 +1,27 @@
+"""minicpm3-4b [dense] — MLA [hf:openbmb/MiniCPM3-4B].
+
+62L d_model=2560 40H d_ff=6400 vocab=73448.  MLA: q_lora 768, kv_lora 256,
+qk_nope 64, qk_rope 32, v_head 64.
+"""
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import register
+
+CONFIG = register(
+    ModelConfig(
+        name="minicpm3-4b",
+        family="dense",
+        num_layers=62,
+        d_model=2560,
+        num_heads=40,
+        num_kv_heads=40,
+        head_dim=64,
+        d_ff=6400,
+        vocab_size=73_448,
+        attn="mla",
+        q_lora_rank=768,
+        kv_lora_rank=256,
+        qk_nope_head_dim=64,
+        qk_rope_head_dim=32,
+        v_head_dim=64,
+    )
+)

@@ -8,7 +8,13 @@ it runs on a GPU machine that has only PyTorch:
 
 Integers (``level_lcs``, LCS values) must be equal and float32 ``mss`` bit-
 equal (tolerance 0): the fused kernel's epilogue is the same forward FMA
-chain (``__fmaf_rn`` in level order) as the plain ``mss_scores``.
+chain (``__fmaf_rn`` in level order) as the plain ``mss_scores``.  The LM
+serving kernels (flash attention, the SSD intra-chunk step) compute in
+float32 and sum in another order than their plain versions: within 1e-4 in
+float32, and 3e-2 for bfloat16 attention (one bfloat16 rounding of the
+output, the JAX kernel tests' bar); a reduced model served on the card
+against the same run on the CPU within 5e-2 in its logits (bfloat16
+activations, the reference's decode-vs-forward bar).
 """
 import numpy as np
 import pytest
@@ -26,6 +32,10 @@ from repro_torch.kernels.minhash import kernel as tmhk
 from repro_torch.kernels.minhash import ops as tminhash
 from repro_torch.kernels.shingle import kernel as tshk
 from repro_torch.kernels.shingle import ops as tshingle
+from repro_torch.kernels.attention import kernel as tattn
+from repro_torch.kernels.ssd import kernel as tssd
+from repro_torch.kernels.ssd import ops as tssd_ops
+from repro_torch.kernels.ssd import ref as tssd_ref
 
 
 @pytest.fixture
@@ -34,7 +44,7 @@ def cuda():
         pytest.skip("launches a Hopper kernel: needs a CUDA device (run on the H100)")
     for wrapper in (tkernel.lcs_kernel, tfused.fused_gather_score,
                     tfused.fused_windowed_gather_score, tshk.shingle_kernel,
-                    tmhk.minhash_kernel):
+                    tmhk.minhash_kernel, tattn.flash_attention_kernel, tssd.ssd_intra):
         wrapper.launches = 0
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -224,3 +234,117 @@ def test_brp_keys_refuse_tf32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert torch.equal(brp_bucket_keys(types, lengths, num_types=300).cpu(), want)
+
+
+def _close(got, want, atol):
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    assert err <= atol, f"max |kernel - plain| = {err} > {atol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 65, 1000])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_attention_kernel_equals_plain(cuda, S, D, rep):
+    rng = np.random.default_rng(S + D + rep)
+    KH = 2
+    shapes = ((2, S, KH * rep, D), (2, S, KH, D), (2, S, KH, D))
+    qkv = [torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda) for s in shapes]
+    launches = 0
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        q, k, v = (t.to(dtype) for t in qkv)
+        for causal in (True, False):
+            got = tattn.flash_attention_kernel(q, k, v, causal=causal)
+            launches += 1
+            assert tattn.flash_attention_kernel.launches == launches
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.cuda.synchronize()
+            _close(got, tattn.flash_attention_plain(q, k, v, causal=causal), atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_strided_operands(cuda):
+    """q, k, v as views of one fused projection (the fused-qkv layout)."""
+    rng = np.random.default_rng(3)
+    B, S, H, KH, D = 2, 130, 8, 2, 64
+    qkv = torch.as_tensor(rng.normal(size=(B, S, (H + 2 * KH) * D)).astype(np.float32), device=cuda)
+    q, k, v = torch.split(qkv.to(torch.bfloat16), [H * D, KH * D, KH * D], dim=-1)
+    q, k, v = q.view(B, S, H, D), k.view(B, S, KH, D), v.view(B, S, KH, D)
+    assert not q.is_contiguous()
+    _close(tattn.flash_attention_kernel(q, k, v), tattn.flash_attention_plain(q, k, v), 3e-2)
+
+
+def _ssd_operands(BC, Q, H, P, N, dev, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.1, size=(BC, Q, H)).astype(np.float32)
+    cum = np.cumsum(dt * -rng.uniform(1.0, 16.0, size=(H,)).astype(np.float32), axis=1)
+    x, B_, C_ = (rng.normal(size=s).astype(np.float32) for s in ((BC, Q, H, P), (BC, Q, N), (BC, Q, N)))
+    to = lambda a, t=torch.float32: torch.as_tensor(a, device=dev).to(t)  # noqa: E731
+    return to(x, dtype), to(cum), to(dt), to(B_, dtype), to(C_, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,P,H", [(128, 64, 64, 80), (128, 128, 64, 64), (16, 64, 64, 3),
+                                     (10, 16, 32, 9), (128, 128, 128, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_kernel_equals_plain(cuda, Q, N, P, H, dtype):
+    ops = _ssd_operands(6, Q, H, P, N, cuda, dtype, seed=Q + N + P)
+    got = tssd.ssd_intra(*ops)
+    assert tssd.ssd_intra.launches == 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, tssd.ssd_intra_plain(*ops)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_on_the_card_and_refusals(cuda):
+    rng = np.random.default_rng(1)
+    B, S, H, P, N = 2, 256, 8, 64, 64
+    x, Bm, Cm = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda)
+                 for s in ((B, S, H, P), (B, S, 1, N), (B, S, 1, N)))
+    dt = torch.as_tensor(rng.uniform(0.001, 0.1, size=(B, S, H)).astype(np.float32), device=cuda)
+    A = -torch.as_tensor(rng.uniform(1.0, 16.0, size=H).astype(np.float32), device=cuda)
+    D = torch.ones(H, device=cuda)
+    y, st = tssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    assert tssd.ssd_intra.launches == 1
+    ry, rst = tssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    _close(y, ry, 1e-4)
+    _close(st, rst, 1e-4)
+    with pytest.raises(ValueError, match="bf16_intra"):
+        tssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    with pytest.raises(TypeError, match="one dtype"):
+        tssd.ssd_intra(*_ssd_operands(2, 16, 2, 8, 8, cuda)[:3], Bm[:2, :16, 0].bfloat16(),
+                       Cm[:2, :16, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-1.3b", "zamba2-2.7b"])
+def test_reduced_lm_served_on_the_card_equals_cpu(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.serve_step import make_decode_step, prefill_with_cache
+
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, "cpu", dtype=torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 18)))
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        lp, cache = prefill_with_cache(p, tokens[:, :16].to(dev), cfg, 32)
+        step = make_decode_step(cfg)
+        out = [lp]
+        for t in (16, 17):
+            ld, cache = step(p, cache, tokens[:, t:t + 1].to(dev))
+            out.append(ld)
+        logits[str(dev)] = torch.cat(out, dim=1).cpu()
+    if cfg.family != "ssm":
+        assert tattn.flash_attention_kernel.launches > 0
+    if cfg.family != "dense":
+        assert tssd.ssd_intra.launches > 0
+    V = cfg.vocab_size
+    _close(logits[str(cuda)][..., :V], logits["cpu"][..., :V], 5e-2)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}

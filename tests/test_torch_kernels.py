@@ -1,4 +1,4 @@
-"""The port's LCS kernel modules against the JAX package's Pallas kernels.
+"""The port's kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each kernel wrapper takes its plain PyTorch version; these tests
 hold that version, and the dispatch around it, bit-equal to the JAX
@@ -7,6 +7,11 @@ own golden tests run them) and to the JAX oracles at larger batches.
 ``level_lcs`` is compared exactly, and float32 ``mss`` with tolerance 0:
 the port's kernel epilogue and ``mss_scores`` are the same forward FMA chain
 as the reference's ``einsum``.
+
+The LM serving kernels' plain versions (flash attention, the SSD intra-
+chunk step) compute in float32 and are held within the JAX kernel tests'
+own bars: 3e-5 for float32 attention, 3e-2 for bfloat16 attention
+(``tests/test_kernels.py``), 1e-4 for SSD.
 
 The kernels themselves are held against these plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -23,13 +28,26 @@ from repro.kernels.lcs import fused as jfused
 from repro.kernels.lcs import kernel as jkernel
 from repro.kernels.lcs import ops as jops
 from repro.kernels.lcs.ref import lcs as jref
+from repro.kernels.attention import ops as j_attn_ops
+from repro.kernels.attention import ref as j_attn_ref
 from repro.kernels.shingle import ops as jshingle
+from repro.kernels.ssd import kernel as j_ssd_kernel
+from repro.kernels.ssd import ops as j_ssd_ops
+from repro.models import layers as jL
+from repro.models import mamba as jM
 from repro_torch.kernels import _build
 from repro_torch.kernels.lcs import fused as tfused
 from repro_torch.kernels.lcs import kernel as tkernel
+from repro_torch.kernels.attention import kernel as t_attn
+from repro_torch.kernels.attention import ops as t_attn_ops
+from repro_torch.kernels.attention import ref as t_attn_ref
 from repro_torch.kernels.lcs import ops as tops
 from repro_torch.kernels.shingle import kernel as tshk
 from repro_torch.kernels.shingle import ops as tshingle
+from repro_torch.kernels.ssd import kernel as t_ssd
+from repro_torch.kernels.ssd import ops as t_ssd_ops
+from repro_torch.kernels.ssd import ref as t_ssd_ref
+from repro_torch.models import layers as tL
 
 
 def T(x):
@@ -307,7 +325,8 @@ def test_shingle_kernel_rejects_bad_operands():
 # the build
 # ---------------------------------------------------------------------------
 def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
-    assert _build.sources() == ["fused_score", "fused_windowed_score", "lcs", "minhash", "shingle"]
+    assert _build.sources() == ["flash_attention", "fused_score", "fused_windowed_score", "lcs",
+                                "minhash", "shingle", "ssd_intra"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -316,3 +335,165 @@ def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a system nvcc under /usr/local/cuda is always found")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel #6): the plain version
+# ---------------------------------------------------------------------------
+def F32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def assert_close(got, want, atol, what=""):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else F32(got)
+    np.testing.assert_allclose(got, F32(want), rtol=0, atol=atol, err_msg=what)
+
+
+def _qkv(B, Sq, H, KH, D, seed, dtype=jnp.float32, Skv=None):
+    rng = np.random.default_rng(seed)
+    Skv = Sq if Skv is None else Skv
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D))]
+    return [jnp.asarray(a, dtype) for a in arrs]
+
+
+def TB(x):
+    """JAX array -> CPU tensor, bfloat16 kept bit for bit."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+ATTN_SHAPES = [
+    (2, 128, 4, 2, 64, True), (1, 256, 8, 8, 32, True),
+    (2, 128, 4, 1, 64, False), (3, 64, 6, 2, 128, True),  # tests/test_kernels.py
+    (2, 128, 4, 4, 80, True),   # zamba2's head_dim, MHA (rep = 1)
+    (1, 128, 8, 2, 128, True),  # granite's head_dim, GQA rep = 4
+]
+
+
+@pytest.mark.parametrize("B,Sq,H,KH,D,causal", ATTN_SHAPES)
+def test_attention_plain_matches_pallas_f32(B, Sq, H, KH, D, causal):
+    q, k, v = _qkv(B, Sq, H, KH, D, B * Sq + H)
+    got = t_attn.flash_attention_plain(TB(q), TB(k), TB(v), causal=causal)
+    pallas = j_attn_ops.flash_attention(q, k, v, causal=causal, blk_q=64, blk_k=64)
+    assert_close(got, pallas, 3e-5, "vs the Pallas kernel (interpret)")
+    assert_close(got, j_attn_ref.attention(q, k, v, causal=causal), 3e-5, "vs ref.attention")
+
+
+@pytest.mark.parametrize("B,Sq,H,KH,D", [(2, 128, 4, 2, 64), (2, 128, 4, 4, 80), (1, 128, 8, 2, 128)])
+def test_attention_plain_matches_pallas_bf16(B, Sq, H, KH, D):
+    q, k, v = _qkv(B, Sq, H, KH, D, 7, jnp.bfloat16)
+    got = t_attn.flash_attention_plain(TB(q), TB(k), TB(v))
+    assert got.dtype == torch.bfloat16
+    assert_close(got, j_attn_ops.flash_attention(q, k, v, blk_q=64, blk_k=64), 3e-2)
+    assert_close(got, j_attn_ref.attention(q, k, v), 3e-2)
+
+
+def test_attention_plain_is_chunked_attention_over_chunks():
+    """Two q chunks and two kv chunks of 1,024: the plain version is
+    ``layers.chunked_attention``, the function the JAX serving path runs."""
+    q, k, v = _qkv(1, 2048, 2, 1, 32, 11)
+    got = tL.chunked_attention(TB(q), TB(k), TB(v), causal=True)
+    assert_close(got, jL.chunked_attention(q, k, v, causal=True), 3e-5)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(1, 1), (65, 65), (1000, 1000), (65, 130), (1, 70)])
+@pytest.mark.parametrize("D,H,KH", [(64, 4, 4), (80, 4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ragged_lengths(Sq, Skv, D, H, KH, causal):
+    """Lengths the Pallas kernel refuses (it needs whole blocks) but the
+    CUDA kernel takes: the wrapper on CPU tensors (its plain version, no
+    launch) against the reference's full-softmax oracle and the port's."""
+    q, k, v = _qkv(1, Sq, H, KH, D, Sq + Skv + D, Skv=Skv)
+    t_attn.flash_attention_kernel.launches = 0
+    got = t_attn_ops.flash_attention(TB(q), TB(k), TB(v), causal=causal)
+    assert t_attn.flash_attention_kernel.launches == 0
+    assert_close(got, j_attn_ref.attention(q, k, v, causal=causal), 3e-5)
+    assert_close(got, t_attn_ref.attention(TB(q), TB(k), TB(v), causal=causal), 3e-5)
+
+
+def test_attention_rejects_bad_operands():
+    q, k, v = (torch.zeros(s) for s in ((1, 4, 4, 8), (1, 4, 3, 8), (1, 4, 3, 8)))
+    with pytest.raises(ValueError, match="multiple of KH"):
+        t_attn_ops.flash_attention(q, k, v)
+    with pytest.raises(TypeError, match="dtypes"):
+        t_attn_ops.flash_attention(q, q, q.double())
+    with pytest.raises(ValueError, match="must be"):
+        t_attn_ops.flash_attention(q, q[0], q[0])
+
+
+# ---------------------------------------------------------------------------
+# the SSD intra-chunk step (kernel #7): the plain version and the scan op
+# ---------------------------------------------------------------------------
+def _ssd_inputs(B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        rng.normal(size=(B, S, H, P)).astype(np.float32),
+        rng.uniform(0.001, 0.1, size=(B, S, H)).astype(np.float32),
+        -rng.uniform(0.5, 4.0, size=(H,)).astype(np.float32),
+        rng.normal(size=(B, S, 1, N)).astype(np.float32),
+        rng.normal(size=(B, S, 1, N)).astype(np.float32),
+        rng.normal(size=(H,)).astype(np.float32),
+    ]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 64, 4, 32, 16, 16), (1, 128, 8, 64, 32, 32), (2, 96, 2, 16, 8, 48),  # TestSSD
+    (1, 96, 2, 64, 64, 32),  # zamba2's P = N = 64, three chunks
+])
+def test_ssd_plain_matches_pallas(B, S, H, P, N, chunk):
+    arrs = _ssd_inputs(B, S, H, P, N, S + H)
+    y, st = t_ssd_ops.ssd_chunked(*map(T, arrs), chunk=chunk)
+    jy, jst = j_ssd_ops.ssd_chunked(*map(jnp.asarray, arrs), chunk=chunk)
+    assert_close(y, jy, 1e-4, "y vs the Pallas op (interpret)")
+    assert_close(st, jst, 1e-4, "state vs the Pallas op (interpret)")
+    ry, rst = jM._ssd_chunked(*map(jnp.asarray, arrs), chunk=chunk)
+    assert_close(y, ry, 1e-4, "y vs _ssd_chunked")
+    assert_close(st, rst, 1e-4, "state vs _ssd_chunked")
+    ry2, rst2 = t_ssd_ref.ssd_chunked(*map(T, arrs), chunk=chunk)
+    assert torch.equal(y, ry2) and torch.equal(st, rst2)
+
+
+@pytest.mark.parametrize("BC,Q,H,P,N", [(3, 16, 4, 32, 16), (2, 32, 3, 64, 64)])
+def test_ssd_intra_plain_matches_pallas_kernel(BC, Q, H, P, N):
+    """The intra-chunk step alone against ``ssd_intra_pallas`` (interpret):
+    y, the chunk states and the chunk decays."""
+    rng = np.random.default_rng(Q + N)
+    x = rng.normal(size=(BC, Q, H, P)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(BC, Q, H)).astype(np.float32)
+    cum = np.cumsum(dt * -rng.uniform(0.5, 4.0, size=(H,)).astype(np.float32), axis=1)
+    B_ = rng.normal(size=(BC, Q, N)).astype(np.float32)
+    C_ = rng.normal(size=(BC, Q, N)).astype(np.float32)
+    t_ssd.ssd_intra.launches = 0
+    got = t_ssd.ssd_intra(*map(T, (x, cum, dt, B_, C_)))
+    assert t_ssd.ssd_intra.launches == 0
+    want = j_ssd_kernel.ssd_intra_pallas(*map(jnp.asarray, (x, cum, dt, B_, C_)), interpret=True)
+    for g, w, name in zip(got, want, ("y", "state", "cdecay")):
+        assert tuple(g.shape) == tuple(w.shape), name
+        assert g.dtype == torch.float32, name
+        assert_close(g, w, 1e-4, name)
+
+
+def test_ssd_plain_bf16_intra_matches_jax():
+    """``ssm_bf16_intra`` (no config sets it) rounds the intra-chunk score
+    and decay matrices to bfloat16 in both packages; the plain version
+    carries it (the kernel refuses it).  5e-2: values one bfloat16 rounding
+    apart where the two packages' exp differ by an ulp."""
+    arrs = _ssd_inputs(1, 64, 4, 32, 16, 5)
+    y, st = t_ssd_ops.ssd_chunked(*map(T, arrs), chunk=32, bf16_intra=True)
+    ry, rst = jM._ssd_chunked(*map(jnp.asarray, arrs), chunk=32, bf16_intra=True)
+    assert_close(y, ry, 5e-2)
+    assert_close(st, rst, 5e-2)
+
+
+def test_ssd_rejects_bad_operands():
+    x, dt, A, B_, C_, D = map(T, _ssd_inputs(1, 32, 2, 8, 4, 0))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        t_ssd_ops.ssd_chunked(x, dt, A, B_, C_, D, chunk=12)
+    with pytest.raises(ValueError, match="one B/C group"):
+        t_ssd_ops.ssd_chunked(x, dt, A, B_.repeat(1, 1, 2, 1), C_.repeat(1, 1, 2, 1), D, chunk=16)
+    with pytest.raises(TypeError, match="float32"):
+        t_ssd.ssd_intra(x[:, :, :, :], dt[..., None].double().squeeze(-1).reshape(1, 32, 2),
+                        dt.reshape(1, 32, 2), B_[:, :, 0], C_[:, :, 0])
