@@ -8,7 +8,9 @@ phases, and exits non-zero if any phase fails:
 
 1. device  — a CUDA card must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-2. build   — compiles every kernel source with nvcc for sm_90a, in parallel.
+2. build   — compiles every kernel source with nvcc for sm_90a, in parallel;
+   logs each source's build seconds and ptxas report, and requires HGMMA
+   (wgmma) instructions in the tensor-core flash-attention library's SASS.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
    card, bit-equal, at edge shapes and at the main path's shapes.
 4. fig1    — the paper's Fig. 1 story through the fused kernel.
@@ -47,21 +49,23 @@ phases, and exits non-zero if any phase fails:
    engine (the paper's lossless claim).
 13. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
-   64/80/128, GQA 1 and 4, causal and not, float32 and bfloat16; SSD
+   64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
+   bfloat16 on the wgmma route and again on the CUDA-core route; SSD
    states 64 and 128) and the chunked SSD scan against its plain version.
 14. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
    the card against the same run on the CPU.
 15. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
    published widths (random bfloat16 weights from a seed) serve 4 prompts
    of 2,048 tokens and 32 greedy tokens each: the prefill launches #6 9
-   (zamba2) and 40 (granite) times and #7 54 times (zamba2); the first
+   (zamba2) and 40 (granite) times, every one on the wgmma route, and #7
+   54 times (zamba2); the first
    call's kernel operands are rerun through the plain versions; prefill
    and two teacher-forced decode steps are held against ``forward``.
    Each also profiles one prefill and 8 decode steps (device busy and
    idle shares, device time by kernel kind).
 16. lm timing — #6 at both models' operands and at prefill_32k's length,
-   beside its plain version and ``scaled_dot_product_attention``; #7 at
-   zamba2's operands.
+   beside its plain version and ``scaled_dot_product_attention`` (and, at
+   granite's operands, the CUDA-core kernel); #7 at zamba2's operands.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
@@ -172,9 +176,18 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if line.startswith("nvcc ") or "registers" in line or "spill" in line or "smem" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
+            elif "Performance" in line:  # e.g. wgmma serialized by ptxas
+                log(f"ptxas[{name}]: {line.strip()[:200]}")
     log(f"build: {len(logs)} sources in {secs:.2f} s")
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("flash_attention_sm90"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HGMMA" in line]
+    check(hgmma, "flash_attention_sm90: no HGMMA instruction in its SASS")
+    log(f"flash_attention_sm90 SASS: {len(hgmma)} HGMMA instructions "
+        f"({', '.join(sorted(set(h.split()[0] for h in hgmma)))})")
 
 
 def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_b=1_048_573):
@@ -301,6 +314,9 @@ def _counted(fn):
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
+    flash = wrappers["flash_attention_kernel"]
+    flash.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+    flash.copies = 0
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -1058,7 +1074,9 @@ def _ssd_operands(torch, dev, BC, Q, H, P, N, dtype, rng):
 
 def phase_lm_kernels(torch, dev):
     """Kernels #6 and #7 against their plain versions on the card at edge
-    shapes: float32 within 1e-4, bfloat16 attention within 3e-2."""
+    shapes: float32 within 1e-4, bfloat16 attention within 3e-2 on both of
+    #6's routes (the wrapper's wgmma route, then the CUDA-core kernel run
+    by name on the same operands)."""
     import numpy as np
 
     from repro_torch.kernels.attention import kernel as attn
@@ -1067,6 +1085,7 @@ def phase_lm_kernels(torch, dev):
     from repro_torch.kernels.ssd import ref as ssd_ref
 
     rng = np.random.default_rng(0)
+    fk = attn.flash_attention_kernel
     worst, n = {}, 0
     for S in (1, 65, 1000):
         for D in (64, 80, 128):
@@ -1075,18 +1094,28 @@ def phase_lm_kernels(torch, dev):
                         for sh in ((2, S, 2 * rep, D), (2, S, 2, D), (2, S, 2, D))]
                 for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
                     q, k, v = (t.to(dtype) for t in base)
+                    path = attn.route(dtype, D)
                     for causal in (True, False):
-                        got = attn.flash_attention_kernel(q, k, v, causal=causal)
+                        want = attn.flash_attention_plain(q, k, v, causal=causal)
+                        before = fk.launches_by_route[path]
+                        got = {path: fk(q, k, v, causal=causal)}
+                        check(fk.launches_by_route[path] == before + 1,
+                              f"flash attention {dtype} D={D}: not launched on the {path} route")
+                        if path == "wgmma":
+                            got["cuda_cores"] = attn.launch("cuda_cores", q, k, v, causal=causal)
                         torch.cuda.synchronize()
-                        err = _max_err(got, attn.flash_attention_plain(q, k, v, causal=causal))
-                        what = f"flash attention S={S} D={D} rep={rep} {dtype} causal={causal}"
-                        check(got.dtype == dtype and got.shape == q.shape, f"{what}: {got.dtype} {tuple(got.shape)}")
-                        check(err <= tol, f"{what}: max |kernel - plain| {err} > {tol}")
-                        worst[dtype] = max(worst.get(dtype, 0.0), err)
-                        n += 1
+                        for route, out in got.items():
+                            err = _max_err(out, want)
+                            what = f"flash attention [{route}] S={S} D={D} rep={rep} {dtype} causal={causal}"
+                            check(out.dtype == dtype and out.shape == q.shape,
+                                  f"{what}: {out.dtype} {tuple(out.shape)}")
+                            check(err <= tol, f"{what}: max |kernel - plain| {err} > {tol}")
+                            key = (route, str(dtype).removeprefix("torch."))
+                            worst[key] = max(worst.get(key, 0.0), err)
+                            n += 1
     log(f"flash_attention_kernel: {n} edge cases (S 1/65/1000, D 64/80/128, rep 1/4, causal and "
-        f"not) within tolerance; worst float32 {worst[torch.float32]:.3g}, "
-        f"bfloat16 {worst[torch.bfloat16]:.3g}")
+        f"not; bfloat16 on both routes) within tolerance; worst "
+        + ", ".join(f"{r} {d} {e:.3g}" for (r, d), e in sorted(worst.items())))
     for N in (64, 128):
         for dtype in (torch.float32, torch.bfloat16):
             ops = _ssd_operands(torch, dev, 8, 128, 16, 64, N, dtype, rng)
@@ -1260,6 +1289,12 @@ def phase_lm_full(torch, dev, arch, expect):
         prefill_s = time.perf_counter() - t0
     got = {k: counts[k] for k in expect}
     check(got == expect, f"{tag}: prefill launches {got}, expected {expect}")
+    routes = dict(attn.flash_attention_kernel.launches_by_route)
+    if "flash_attention_kernel" in expect:
+        want_routes = {"wgmma": expect["flash_attention_kernel"], "cuda_cores": 0}
+        check(routes == want_routes, f"{tag}: flash attention routes {routes}, expected {want_routes}")
+        check(attn.flash_attention_kernel.copies == 0,
+              f"{tag}: {attn.flash_attention_kernel.copies} operand copies before flash attention")
     check(logits.shape == (LM_BATCH, 1, padded_vocab(cfg)) and bool(torch.isfinite(logits[..., :V]).all()),
           f"{tag}: prefill logits {tuple(logits.shape)}")
     operands = {}
@@ -1306,7 +1341,7 @@ def phase_lm_full(torch, dev, arch, expect):
     cb = cache_bytes(cfg, LM_BATCH, LM_MAX_LEN)
     log(f"{tag}: {param_count(cfg)} parameters (bf16, init {init_s:.3f} s); prefill {LM_BATCH} x "
         f"{LM_PROMPT} tokens {prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s), "
-        f"launches {got}; decode {LM_GEN} greedy steps {decode_s:.3f} s "
+        f"launches {got}, flash attention routes {routes}; decode {LM_GEN} greedy steps {decode_s:.3f} s "
         f"({decode_s / LM_GEN * 1e3:.2f} ms a step for {LM_BATCH} requests); cache {cb} bytes; "
         f"peak device memory {peak:.2f} GiB; request 0 generated {gen[0, :8].tolist()}...")
     del cache, logits
@@ -1352,7 +1387,7 @@ def phase_lm_full(torch, dev, arch, expect):
         f"teacher-forced decode steps): vs forward {[float(f'{e:.4g}') for e in vs16]}; vs a float32 "
         f"forward {[float(f'{e:.4g}') for e in vs32]}, where the bfloat16 forward is "
         f"{[float(f'{e:.4g}') for e in floor]} (logits max |.| {float(fwd32.abs().max()):.3f})")
-    return counts, operands
+    return counts, operands, routes
 
 
 def _causal_pairs(Sq, Skv):
@@ -1362,7 +1397,11 @@ def _causal_pairs(Sq, Skv):
     return Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
 
 
-def _flash_row(torch, q, k, v, causal, launches, path):
+def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
+    """#6 at one shape: the wrapper's kernel (the wgmma route on bf16 with
+    D <= 128) beside the plain version and SDPA; with ``cuda_cores`` also
+    the CUDA-core kernel (``flash_attention.cu``), run by name on the same
+    operands."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import kernel as attn
@@ -1373,7 +1412,8 @@ def _flash_row(torch, q, k, v, causal, launches, path):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal, enable_gqa=True)
     ms, plain_ms, library_ms = _time_ms(torch, run), _time_ms(torch, plain, reps=3), _time_ms(torch, lib)
     out = run()
-    err = _max_err(out, plain())
+    want = plain()
+    err = _max_err(out, want)
     lib_err = _max_err(out, lib().transpose(1, 2))
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
@@ -1381,14 +1421,24 @@ def _flash_row(torch, q, k, v, causal, launches, path):
     flops = 4 * D * pairs  # q.k and p.v, 2 flops a multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    row = dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, library_ms=library_ms, path=path, kernel_route=attn.route(q.dtype, D),
+               tflops=flops / ms / 1e9,
+               shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}"
+                     f" causal={causal}")
+    extra = ""
+    if cuda_cores:
+        old = lambda: attn.launch("cuda_cores", q, k, v, causal=causal)  # noqa: E731
+        row["cuda_cores_ms"] = _time_ms(torch, old, reps=3)
+        row["cuda_cores_max_abs_err"] = _max_err(old(), want)
+        extra = (f"; the CUDA-core kernel {row['cuda_cores_ms']:.3f} ms "
+                 f"({row['cuda_cores_ms'] / ms:.1f}x the {row['kernel_route']} kernel)")
     log(f"timing flash_attention_kernel [{path}] q {list(q.shape)} k {list(k.shape)}: {ms:.3f} ms "
-        f"(plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms, bound {bound:.4f} ms by {by}: "
-        f"{flops:.3g} flops at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} MB); "
-        f"{flops / ms / 1e9:.2f} TFLOP/s; max |kernel - sdpa| {lib_err:.3g}")
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=library_ms, path=path,
-                shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}"
-                      f" causal={causal}")
+        f"on the {row['kernel_route']} route (plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms = "
+        f"{ms / library_ms:.2f}x, bound {bound:.4f} ms by {by}: {flops:.3g} flops at 989 TFLOP/s "
+        f"bf16, {nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s; max |kernel - plain| "
+        f"{err:.3g}, |kernel - sdpa| {lib_err:.3g}{extra}")
+    return row
 
 
 def phase_timing_lm(torch, dev, zamba, granite):
@@ -1398,19 +1448,24 @@ def phase_timing_lm(torch, dev, zamba, granite):
 
     from repro_torch.kernels.ssd import kernel as ssd
 
-    (z_counts, z_ops), (g_counts, g_ops) = zamba, granite
+    (z_counts, z_ops, z_routes), (g_counts, g_ops, g_routes) = zamba, granite
     main = _flash_row(torch, *z_ops["flash_attention_kernel"], z_counts["flash_attention_kernel"],
                       f"zamba2-2.7b prefill {LM_BATCH} x {LM_PROMPT}")
     rows = [_flash_row(torch, *g_ops["flash_attention_kernel"], g_counts["flash_attention_kernel"],
-                       f"granite-3-8b prefill {LM_BATCH} x {LM_PROMPT}")]
+                       f"granite-3-8b prefill {LM_BATCH} x {LM_PROMPT}", cuda_cores=True)]
+    rows[0]["launches_by_route"] = g_routes
     rng = np.random.default_rng(2)
     q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev).to(torch.bfloat16)
                for sh in ((1, PREFILL_32K, 32, 128), (1, PREFILL_32K, 8, 128), (1, PREFILL_32K, 8, 128)))
     rows.append(_flash_row(torch, q, k, v, True, 0, "prefill_32k's length, granite's heads (timing only)"))
     del q, k, v
     flash = dict(name="flash_attention_kernel", route="cuda",
-                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                 replaces="src/repro/kernels/attention/kernel.py:111", **main, rows=rows)
+                 source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                 replaces="src/repro/kernels/attention/kernel.py:111", **main,
+                 launches_by_route=z_routes,
+                 other_route=dict(name="cuda_cores", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                                  takes="float32, and bfloat16 head dims outside 16..128 step 16"),
+                 rows=rows)
 
     ops = z_ops["ssd_intra"]
     x, _, _, B_, _ = ops

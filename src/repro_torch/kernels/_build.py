@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -64,22 +65,32 @@ def _command(name: str, out: Path) -> list[str]:
 def build_all(names=None) -> dict[str, str]:
     """Compile every stale source in parallel (one ``nvcc`` each).
 
-    Returns ``{name: compiler output}`` for the sources built by this call
-    (the ptxas register/shared-memory report among it).
+    Returns ``{name: compiler output}`` for the sources built by this call,
+    each led by a line ``nvcc <name>.cu: <seconds> s`` (its own wall time
+    from the common start) and holding the ptxas register/shared-memory
+    report.
     """
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not _target(n).is_file()]
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            _command(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True,
-        ))
+        with open(tmp.with_suffix(".log"), "w") as out:  # a file: no pipe to fill while polling
+            procs[n] = (tmp, subprocess.Popen(_command(n, tmp), stdout=out,
+                                              stderr=subprocess.STDOUT))
+    seconds = {}
+    while len(seconds) < len(procs):
+        for n, (_, proc) in procs.items():
+            if n not in seconds and proc.poll() is not None:
+                seconds[n] = time.perf_counter() - t0
+        time.sleep(0.02)
     logs, failed = {}, []
     for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+        log_file = tmp.with_suffix(".log")
+        out = f"nvcc {n}.cu: {seconds[n]:.2f} s\n" + log_file.read_text()
+        log_file.unlink()
         logs[n] = out
         if proc.returncode != 0:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")

@@ -1,4 +1,4 @@
-"""Flash attention (forward): the Hopper kernel and its plain version.
+"""Flash attention (forward): the Hopper kernels and their plain version.
 
 Port of ``repro/kernels/attention/kernel.py::flash_attention_pallas``, the
 kernel the JAX package wrote to slot in behind
@@ -7,14 +7,27 @@ kernel the JAX package wrote to slot in behind
 query head ``h`` reads kv head ``h // (H // KH)``), scores in float32
 scaled by ``1/sqrt(D)``, the causal mask ``q_pos >= k_pos`` filled with
 ``-1e30``, an online softmax over kv blocks with the ``max(l, 1e-30)``
-guard, ``p @ v`` in float32 (the Pallas body rounds ``p`` to ``v.dtype``
-first; ``chunked_attention`` does not, and neither does this), and the
-output rounded once to ``q.dtype``.
+guard (``l`` summed from the float32 ``p``), and the output rounded once to
+``q.dtype``.
 
-:func:`flash_attention_kernel` launches ``kernels/csrc/flash_attention.cu``
-for CUDA tensors and takes the plain version, :func:`flash_attention_plain`,
-only for CPU tensors.  Every launch adds one to
-``flash_attention_kernel.launches``.
+:func:`flash_attention_kernel` launches one of two CUDA kernels for CUDA
+tensors, by dtype and head dim (:func:`route`), and takes the plain
+version, :func:`flash_attention_plain`, only for CPU tensors:
+
+- ``"wgmma"``: bfloat16 with D a multiple of 16 up to 128 (every head dim
+  of the registered dense and hybrid configs: 80 and 128) runs
+  ``kernels/csrc/flash_attention_sm90.cu`` on the tensor cores (``wgmma``
+  fed by TMA).  It rounds ``p`` to bfloat16 before ``p @ v``, as the Pallas
+  body does (``p.astype(v.dtype)``); within 3e-2 of the plain version.
+- ``"cuda_cores"``: float32, and bfloat16 head dims outside that set, run
+  ``kernels/csrc/flash_attention.cu`` in float32 on the CUDA cores, with
+  ``p @ v`` in float32 as ``chunked_attention`` computes it.
+
+The plain version keeps ``p`` in float32, as ``chunked_attention`` does.
+Every launch adds one to ``flash_attention_kernel.launches`` and to its
+route's entry of ``flash_attention_kernel.launches_by_route``; an operand
+copied to meet a kernel's layout rules adds one to
+``flash_attention_kernel.copies``.
 """
 from __future__ import annotations
 
@@ -30,7 +43,16 @@ NEG_INF = -1e30
 # chunked_attention's q and kv chunk lengths (the plain version's blocks)
 Q_CHUNK = KV_CHUNK = 1024
 MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+# route -> (csrc source, C launcher, its ctypes argument types)
+LAUNCHERS = {
+    "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch",
+              _HEAD + [ctypes.c_int, ctypes.c_void_p]),
+    "cuda_cores": ("flash_attention", "flash_attention_launch",
+                   _HEAD + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
@@ -87,13 +109,56 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def _launcher():
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches:
+    ``"wgmma"`` for bfloat16 with D a multiple of 16 up to 128, else
+    ``"cuda_cores"``.  Raises on what neither takes (another dtype, D over
+    256 or not a multiple of 8)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the flash-attention kernels take float32 or bfloat16, got {dtype}")
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"the flash-attention kernels take head_dim <= {MAX_HEAD_DIM} "
+                         f"and a multiple of 8, got {D}")
+    if dtype == torch.bfloat16 and D % 16 == 0 and D <= WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` [B, S, heads, D] in place: head dim
+    contiguous, a 16-byte-aligned address, and 16-byte multiples as the
+    strides of the dims longer than 1."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(st * t.element_size() % 16 == 0
+               for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _launcher(path: str):
+    source, symbol, argtypes = LAUNCHERS[path]
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(path: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool) -> torch.Tensor:
+    """Launch route ``path``'s kernel on CUDA operands it reads in place
+    (Skv >= 1) and return the output; raises if the launch fails.  Counts
+    nothing: :func:`flash_attention_kernel` is the entry point, this is its
+    last step (and how a comparison runs a route by name)."""
+    B, Sq, Skv, H, KH, D = check_operands(q, k, v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dtype = () if path == "wgmma" else (_DTYPES[q.dtype],)
+    err = _launcher(path)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, H, KH, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), *dtype, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, f"flash_attention_kernel ({path})")
+    return out
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,33 +166,33 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,Sq,H,D], k/v [B,Skv,KH,D] (float32 or bfloat16) -> [B,Sq,H,D]
     in q's dtype.
 
-    On CUDA tensors: launches ``flash_attention.cu`` on the current stream,
-    reading the operands through their batch/sequence/head strides (the
-    head dim must be contiguous); raises on what the kernel does not take
-    (D > 256 or not a multiple of 8, another dtype) or if the launch fails.
-    On CPU tensors: :func:`flash_attention_plain`.
+    On CUDA tensors: launches the kernel :func:`route` names on the current
+    stream, reading the operands through their batch/sequence/head strides.
+    An operand the kernel cannot read in place (head dim not contiguous; for
+    ``"wgmma"``, not :func:`tma_ready`) is copied with ``.contiguous()``
+    first.  Raises on what neither kernel takes or if the launch fails;
+    nothing falls back to the other kernel or the plain version.  On CPU
+    tensors: :func:`flash_attention_plain`.
     """
     B, Sq, Skv, H, KH, D = check_operands(q, k, v)
     if not on_cuda(q):
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the flash-attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if D > MAX_HEAD_DIM or D % 8:
-        raise ValueError(f"the flash-attention kernel takes head_dim <= {MAX_HEAD_DIM} "
-                         f"and a multiple of 8, got {D}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    if out.numel() == 0 or Skv == 0:
-        return out.zero_()  # no keys: the plain version's acc / max(l, 1e-30) = 0
-    err = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, H, KH, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "flash_attention_kernel")
+    path = route(q.dtype, D)
+    if q.numel() == 0 or Skv == 0:  # no keys: the plain version's acc / max(l, 1e-30) = 0
+        return torch.zeros((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    ready = tma_ready if path == "wgmma" else (lambda t: t.stride(-1) == 1)
+    ops = []
+    for t in (q, k, v):
+        if not ready(t):
+            t = t.contiguous()
+            flash_attention_kernel.copies += 1
+        ops.append(t)
+    out = launch(path, *ops, causal=causal)
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_route[path] += 1
     return out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+flash_attention_kernel.copies = 0

@@ -1,0 +1,517 @@
+// Flash attention (forward, causal or not, GQA) for Hopper (sm_90a) on the
+// tensor cores: q [B, Sq, H, D], k/v [B, Skv, KH, D] bfloat16 (head dim
+// contiguous, D a multiple of 16 up to 128, any 16-byte-aligned batch/
+// sequence/head strides) -> out [B, Sq, H, D] contiguous bfloat16.
+//
+// Replaces the TPU kernel repro/kernels/attention/kernel.py::
+// flash_attention_pallas and computes the function of
+// repro/models/layers.py::chunked_attention: s = (q . k) * (1 / sqrt(D)) in
+// float32, the causal mask q_pos >= k_pos filled with -1e30, an online
+// softmax over kv tiles (m, l in float32, l summed from the float32 p), and
+// out = acc / max(l, 1e-30) rounded once to bfloat16.  As in the Pallas body
+// (and unlike chunked_attention), p is rounded to bfloat16 before p . v, so
+// that the second product runs on the tensor cores too.  Query head h reads
+// kv head h / (H / KH); nothing is replicated.
+//
+// Bound on an H100: 4 D flops a (query, key) pair the mask keeps (2 for
+// q . k, 2 for p . v) at 989 TFLOP/s bf16 against q, k, v and out moved once
+// at 3.35 TB/s: operations above a few hundred keys, which is every prefill
+// layer of the serving path.  So the design keeps the tensor cores fed:
+//
+// - One block per (128-row q tile, b * H + h), 256 threads: two warpgroups
+//   of 64 rows each.  Causal q tiles are issued longest first (the tile
+//   index is the slow grid dimension, counted down), so the short tiles
+//   fill the last wave.
+// - Loads are TMA (cp.async.bulk.tensor) through 4-D tensor maps over the
+//   operands' own [B, S, H, D] strides, so the fused-qkv views load with no
+//   copy: the q tile once, then 128-key k and v tiles through a ring of 2
+//   stages (4 at D <= 64; 161 KB and 145 KB of shared memory, one block an
+//   SM).  Each stage has a full mbarrier that counts the TMA bytes; a stage
+//   is refilled with the tile NS ahead by one thread of the warpgroup that
+//   finishes with it second (a shared counter decides which), so no warp
+//   waits for the other warpgroup.  There is no producer warp: a ninth warp
+//   puts three warps on one of the SM's four register files (16K registers
+//   each), which caps a thread at 168 registers; the two warpgroups need
+//   186-191 at D > 64, and at 168 ptxas serialized the wgmmas.
+// - S = Q K^T: wgmma.mma_async m64n128k16, bf16 in, float32 accumulate, both
+//   operands K-major in shared memory (D is contiguous in q and k).
+// - Softmax in registers on the wgmma accumulator layout: a thread holds two
+//   rows; the row max and sum are reduced over the 4 threads of a row with
+//   __shfl_xor_sync.  Only tiles that cross the causal diagonal or the Skv
+//   edge are masked; tiles wholly above the diagonal are never loaded.
+// - O += P V: wgmma m64n64k16 per 64 output columns, with A = P converted to
+//   bf16 in registers (the float32 accumulator layout of m64nNk16 is the
+//   register A-fragment layout of k16) and B = the v tile in shared memory,
+//   which is MN-major for this product: the transpose bit, no copy.
+// - Epilogue: acc / max(l, 1e-30) to bf16, stored as bf16 pairs; rows past
+//   Sq and columns past D are not written.
+// - Each warpgroup runs q . k, the softmax and p . v in turn, and the two
+//   warpgroups interleave on the tensor cores.  A schedule that runs the
+//   softmax of tile j beside p . v of tile j - 1 ran slower (ptxas
+//   serializes wgmmas whose accumulators the softmax reads), and so did
+//   64-key tiles and a third stage.
+//
+// Where the trouble is, and what this does about it:
+// 1. D = 80 (zamba2-2.7b): 160-byte rows do not fit one 128-byte swizzle
+//    box.  The tensor map declares D as its inner dimension and loads boxes
+//    of 64 columns; TMA zero-fills columns D.. of the second box, so a tile
+//    is [rows][2 x 64] with zeros past D.  q . k runs only D / 16 k-steps (no
+//    work on the padding); p . v writes zeros to columns past D, never stored.
+// 2. Ragged Sq and Skv: TMA zero-fills rows past either sequence, but a zero
+//    key scores 0, not -inf, so keys past Skv are masked to -inf (p exactly
+//    0) in the tile that crosses Skv; rows past Sq are computed, not stored.
+// 3. TMA's alignment rules (16-byte global address, strides multiples of 16
+//    bytes): the wrapper copies an operand that breaks them (.contiguous())
+//    before the launch; the launcher refuses one that still does.
+// 4. Descriptor layouts: the wgmma shared-memory descriptors (128B swizzle,
+//    8-row groups 1,024 bytes apart, k-steps of 32 bytes inside the swizzle
+//    atom) must match the tensor maps' CU_TENSOR_MAP_SWIZZLE_128B and every
+//    tile base is 1,024-byte aligned.  A mismatch gives wrong numbers, not
+//    an error, so every shape is held against the plain version on the card.
+// 5. Build time: inline PTX and a plain C launcher, no CUTLASS or PyTorch
+//    header.  cuTensorMapEncodeTiled is looked up in libcuda at run time
+//    (cudaGetDriverEntryPoint), so the build does not link it.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kBQ = 128;                   // q rows per block
+constexpr int kBK = 128;                   // keys per k/v tile
+constexpr int kThreads = 256;              // two warpgroups of 64 rows, no producer warp
+constexpr int kRowBytes = 128;             // a 64-column bf16 row: the 128B swizzle span
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that never
+// ends (a byte count that does not match) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled tile of 128-byte rows:
+// start address >> 4, 8-row groups 1,024 bytes apart (the stride offset; the
+// leading offset is set to the same 1,024 and is not used by a 64-column
+// operand), layout type 1 = 128B swizzle.  Valid for a K-major operand and,
+// with the transpose bit, for an MN-major one over the same bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+struct Params {
+  int Sq, Skv, H, KH, D, causal;
+  float scale;
+  __nv_bfloat16* out;
+};
+
+// S[64 x 128] = Q K^T over KS k-steps of 16 columns (none over the zero
+// padding past D): q and k tiles are 64-column chunks of 128-byte rows.
+template <int KS>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_wg, uint32_t k_st,
+                                         uint32_t q_chunk, uint32_t kv_chunk) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t off = (ks % 4) * 32;  // 16 columns inside the swizzle atom
+    wgmma_ss(sc, sw128_desc(q_wg + (ks / 4) * q_chunk + off),
+             sw128_desc(k_st + (ks / 4) * kv_chunk + off), ks > 0);
+  }
+}
+
+// O[64 x 64 NC] += P V: P as bf16 A fragments, v [key][64-column chunk] in
+// shared memory, MN-major for this product (the transpose bit).
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&o)[NC][32], const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t v_st, uint32_t kv_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      wgmma_rs_n64(o[c], pa[kk], sw128_desc(v_st + c * kv_chunk + kk * 16 * kRowBytes));
+}
+
+// The online softmax of one tile on the accumulator layout, in place:
+// sc[4 n + e] is row r0 + 8 (e / 2), key k0 + 8 n + cq + e % 2.  Leaves p
+// (float32) in sc, the rescale of the earlier tiles in corr, and updates
+// the row max m and the row sum l (from the float32 p).
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool mask, int k0, int r0, int cq,
+                                             const Params& p) {
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] *= p.scale;
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + cq + (i % 2);
+      const int row = r0 + 8 * ((i % 4) / 2);
+      if (key >= p.Skv)
+        sc[i] = __int_as_float(static_cast<int>(0xff800000u));  // -inf past the sequence: p = 0
+      else if (p.causal && key > row)
+        sc[i] = kNegInf;  // chunked_attention's mask value
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * n + 2 * r + e];
+        x = exp2f((x - mx) * kLog2e);
+        sum += x;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    corr[r] = exp2f((m[r] - mx) * kLog2e);
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = mx;
+  }
+}
+
+// p to bf16 A fragments of k16: k-step kk covers n8 blocks 2 kk and 2 kk + 1
+// (the m64nNk16 accumulator layout is the register A-fragment layout).
+__device__ __forceinline__ void to_fragments(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+}
+
+// KS: k-steps of 16 columns in q . k (D / 16); NC: 64-column chunks of the
+// head dim (1 for D <= 64, 2 up to 128); NS: stages of the k/v ring.
+template <int KS, int NS, int NC = (KS + 3) / 4>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const Params p) {
+  constexpr uint32_t kQChunk = kBQ * kRowBytes;   // one 64-column chunk of the q tile
+  constexpr uint32_t kKVChunk = kBK * kRowBytes;  // one 64-column chunk of a k or v tile
+  constexpr uint32_t kStage = 2 * NC * kKVChunk;  // k chunks, then v chunks
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[NS + 1];  // full[NS], q
+  __shared__ int done[NS];  // warpgroups that have finished with the stage, counted up
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1,024-aligned
+  const uint32_t kv_smem = q_smem + NC * kQChunk;
+  const uint32_t full0 = smem_u32(&bars[0]), q_bar = smem_u32(&bars[NS]);
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest causal tiles first
+  const int kv_end = p.causal ? min(p.Skv, q0 + kBQ) : p.Skv;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+  auto load_tile = [&](int j) {  // one thread: k and v of tile j into its stage
+    const uint32_t st = kv_smem + (j % NS) * kStage, full = full0 + 8 * (j % NS);
+    mbar_expect_tx(full, kStage);
+    for (int c = 0; c < NC; ++c) {
+      tma_load(st + c * kKVChunk, &kmap, full, 64 * c, kvh, j * kBK, b);
+      tma_load(st + (NC + c) * kKVChunk, &vmap, full, 64 * c, kvh, j * kBK, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      done[s] = 0;
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(q_bar, NC * kQChunk);
+    for (int c = 0; c < NC; ++c) tma_load(q_smem + c * kQChunk, &qmap, q_bar, 64 * c, h, q0, b);
+    for (int j = 0; j < min(NS, n_tiles); ++j) load_tile(j);
+  }
+  __syncthreads();
+
+  // warpgroup wg owns rows q0 + 64 wg ..; this thread rows r0 and r0 + 8
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int wg_row0 = q0 + 64 * wg;
+  const int r0 = wg_row0 + 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);  // first of this thread's two columns in each n8 block
+  const uint32_t q_wg = q_smem + 64 * wg * kRowBytes;
+
+  float o[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  float sc[kBK / 2];
+  uint32_t pa[kBK / 16][4];
+  // After both warpgroups are done with tile j, its stage takes tile j + NS:
+  // the warpgroup that finishes second issues the loads.
+  auto release = [&](int j) {
+    if (wg == 0)  // this warpgroup's wgmmas are done (named barriers 1 and 2)
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 128;" ::: "memory");
+    if (tid % 128 == 0 && atomicAdd(&done[j % NS], 1) % 2 == 1 && j + NS < n_tiles) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_tile(j + NS);
+    }
+  };
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    mbar_wait(full0 + 8 * s, (j / NS) & 1);
+    __syncwarp();  // the warp reconverges before the .aligned wgmma instructions
+    const uint32_t k_st = kv_smem + s * kStage, v_st = k_st + NC * kKVChunk;
+
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<KS>(sc, q_wg, k_st, kQChunk, kKVChunk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    // only tiles that cross the Skv edge or this warpgroup's causal diagonal are masked
+    const bool mask = (j + 1) * kBK > p.Skv || (p.causal && (j + 1) * kBK - 1 > wg_row0);
+    softmax_tile(sc, m, l, corr, mask, j * kBK, r0, cq, p);
+    to_fragments(sc, pa);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i % 4) / 2];
+
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) fence_regs(pa[kk]);
+    wgmma_fence();
+    issue_pv<NC>(o, pa, v_st, kKVChunk);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+    release(j);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= p.Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow =
+        p.out + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * static_cast<long long>(p.D);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 64 * c + 8 * n + cq;
+        if (col < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[c][4 * n + 2 * r] / den, o[c][4 * n + 2 * r + 1] / den);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over [D, heads, S, B] (innermost first) of a bf16 operand with
+// element strides (head, sequence, batch); boxes of 64 columns x 1 head x
+// `rows` positions x 1, 128B swizzle, zeros outside the tensor.
+int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, long long hs,
+             long long ss, long long bs, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(hs) * 2, static_cast<cuuint64_t>(ss) * 2,
+                           static_cast<cuuint64_t>(bs) * 2};
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = 16;  // never stepped: any valid stride
+    if (strides[i] == 0 || strides[i] % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int KS>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const Params& p,
+           int B, cudaStream_t stream) {
+  constexpr int NC = (KS + 3) / 4, NS = NC == 1 ? 4 : 2;  // 145 KB, 161 KB of shared memory
+  const int smem = 1024 + NC * kBQ * kRowBytes + NS * 2 * NC * kBK * kRowBytes;
+  auto kernel = flash_fwd_sm90_kernel<KS, NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * p.H, (p.Sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(qm, km, vm, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Device pointers q, k, v (bfloat16), out (bfloat16, contiguous [B, Sq, H,
+// D]); element strides (batch, sequence, head) of q, k, v, the head dim
+// contiguous.  D a multiple of 16 up to 128, H a multiple of KH, the
+// pointers 16-byte aligned and the strides multiples of 8 elements (of the
+// dims longer than 1).  Launches on ``stream`` and returns 0, or the
+// cudaError_t of what failed (cudaErrorInvalidValue for operands the tensor
+// maps cannot describe).
+extern "C" int flash_attention_sm90_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KH,
+    int D, long long qb, long long qs, long long qh, long long kb, long long ks, long long kh,
+    long long vb, long long vs, long long vh, int causal, void* stream) {
+  if (D <= 0 || D > 128 || D % 16 != 0 || KH <= 0 || H % KH != 0) return 1;  // cudaErrorInvalidValue
+  if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
+  if ((Sq + kBQ - 1) / kBQ > 65535) return 1;  // grid.y
+  const void* ptrs[3] = {q, k, v};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return 1;
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, D, H, Sq, B, qh, qs, qb, kBQ);
+  if (err == 0) err = make_map(&km, k, D, KH, Skv, B, kh, ks, kb, kBK);
+  if (err == 0) err = make_map(&vm, v, D, KH, Skv, B, vh, vs, vb, kBK);
+  if (err != 0) return err;
+  // the scale as chunked_attention forms it: 1 / sqrt(D) in double, then float
+  const Params p{Sq, Skv, H, KH, D, causal,
+                 static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))),
+                 static_cast<__nv_bfloat16*>(out)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D / 16) {
+    case 1: return launch<1>(qm, km, vm, p, B, st);
+    case 2: return launch<2>(qm, km, vm, p, B, st);
+    case 3: return launch<3>(qm, km, vm, p, B, st);
+    case 4: return launch<4>(qm, km, vm, p, B, st);
+    case 5: return launch<5>(qm, km, vm, p, B, st);
+    case 6: return launch<6>(qm, km, vm, p, B, st);
+    case 7: return launch<7>(qm, km, vm, p, B, st);
+    default: return launch<8>(qm, km, vm, p, B, st);
+  }
+}

@@ -64,9 +64,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B,Skv,KH,D] -> [B,Sq,H,D] in q's dtype.
 
     The function of the reference's ``chunked_attention`` (its only callers
-    pass ``causal`` alone), through the flash-attention op: the Hopper
-    kernel for CUDA tensors, the plain online-softmax version for CPU
-    tensors.  Sq and Skv need not divide any chunk length.
+    pass ``causal`` alone), through the flash-attention op: a Hopper kernel
+    for CUDA tensors, the plain online-softmax version (p in float32, as
+    the reference keeps it) for CPU tensors.  On the card, bfloat16 with a
+    head dim that is a multiple of 16 up to 128 (every registered dense and
+    hybrid config) runs on the tensor cores and rounds p to bfloat16 before
+    ``p @ v``, as the reference's Pallas kernel does; float32, and other
+    head dims, run on the CUDA cores with p in float32.  Sq and Skv need
+    not divide any chunk length.
     """
     return flash_attention(q, k, v, causal=causal)
 

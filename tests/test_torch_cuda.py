@@ -12,7 +12,9 @@ chain (``__fmaf_rn`` in level order) as the plain ``mss_scores``.  The LM
 serving kernels (flash attention, the SSD intra-chunk step) compute in
 float32 and sum in another order than their plain versions: within 1e-4 in
 float32, and 3e-2 for bfloat16 attention (one bfloat16 rounding of the
-output, the JAX kernel tests' bar); a reduced model served on the card
+output, the JAX kernel tests' bar; the bfloat16 tensor-core route also
+rounds p to bfloat16 before p @ v, as the Pallas body does, and stays
+within the same bar); a reduced model served on the card
 against the same run on the CPU within 5e-2 in its logits (bfloat16
 activations, the reference's decode-vs-forward bar).
 """
@@ -46,6 +48,8 @@ def cuda():
                     tfused.fused_windowed_gather_score, tshk.shingle_kernel,
                     tmhk.minhash_kernel, tattn.flash_attention_kernel, tssd.ssd_intra):
         wrapper.launches = 0
+    tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+    tattn.flash_attention_kernel.copies = 0
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -254,9 +258,12 @@ def test_flash_attention_kernel_equals_plain(cuda, S, D, rep):
     for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         q, k, v = (t.to(dtype) for t in qkv)
         for causal in (True, False):
+            before = dict(tattn.flash_attention_kernel.launches_by_route)
             got = tattn.flash_attention_kernel(q, k, v, causal=causal)
             launches += 1
             assert tattn.flash_attention_kernel.launches == launches
+            path = "cuda_cores" if dtype == torch.float32 else "wgmma"
+            assert tattn.flash_attention_kernel.launches_by_route[path] == before[path] + 1
             assert got.dtype == dtype and got.shape == q.shape
             torch.cuda.synchronize()
             _close(got, tattn.flash_attention_plain(q, k, v, causal=causal), atol)
@@ -272,6 +279,90 @@ def test_flash_attention_kernel_strided_operands(cuda):
     q, k, v = q.view(B, S, H, D), k.view(B, S, KH, D), v.view(B, S, KH, D)
     assert not q.is_contiguous()
     _close(tattn.flash_attention_kernel(q, k, v), tattn.flash_attention_plain(q, k, v), 3e-2)
+
+
+def _wgmma_case(dev, B, Sq, Skv, H, KH, D, causal, seed):
+    """One bfloat16 call on the tensor-core route: one wgmma launch, no copy,
+    within 3e-2 of the plain version."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev).to(torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    fk = tattn.flash_attention_kernel
+    before = dict(fk.launches_by_route)
+    got = fk(q, k, v, causal=causal)
+    assert fk.launches_by_route == {"wgmma": before["wgmma"] + 1, "cuda_cores": before["cuda_cores"]}
+    assert fk.copies == 0
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.cuda.synchronize()
+    _close(got, tattn.flash_attention_plain(q, k, v, causal=causal), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1000, 2048])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_flash_attention_wgmma_route_equals_plain(cuda, S, D, rep):
+    for causal in (True, False):
+        _wgmma_case(cuda, 2, S, S, 2 * rep, 2, D, causal, S * D + rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(65, 1000), (1, 2048), (129, 130), (1000, 65), (2048, 129), (130, 1)])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_attention_wgmma_route_ragged_q_and_kv(cuda, Sq, Skv, D):
+    for causal in (True, False):
+        _wgmma_case(cuda, 2, Sq, Skv, 8, 2, D, causal, Sq + Skv + D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 48, 96, 112])
+def test_flash_attention_wgmma_route_other_head_dims(cuda, D):
+    for causal in (True, False):
+        _wgmma_case(cuda, 2, 300, 300, 8, 2, D, causal, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_attention_wgmma_route_strided_operands(cuda, D):
+    """The fused-qkv views load through TMA in place: no copy."""
+    rng = np.random.default_rng(3)
+    B, S, H, KH = 2, 130, 8, 2
+    qkv = torch.as_tensor(rng.normal(size=(B, S, (H + 2 * KH) * D)).astype(np.float32), device=cuda)
+    q, k, v = torch.split(qkv.to(torch.bfloat16), [H * D, KH * D, KH * D], dim=-1)
+    q, k, v = q.view(B, S, H, D), k.view(B, S, KH, D), v.view(B, S, KH, D)
+    got = tattn.flash_attention_kernel(q, k, v)
+    assert tattn.flash_attention_kernel.launches_by_route["wgmma"] == 1
+    assert tattn.flash_attention_kernel.copies == 0
+    _close(got, tattn.flash_attention_plain(q, k, v), 3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_route_copies_misaligned_operands(cuda):
+    """A view TMA cannot read (a head stride of 200 bytes) is copied once,
+    before the launch, and still takes the wgmma route."""
+    rng = np.random.default_rng(4)
+    B, S, H, D = 1, 70, 4, 64
+    wide = torch.as_tensor(rng.normal(size=(B, S, H, D + 36)).astype(np.float32), device=cuda)
+    q = wide.to(torch.bfloat16)[..., :D]
+    assert not tattn.tma_ready(q)
+    k, v = (torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32), device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    got = tattn.flash_attention_kernel(q, k, v)
+    assert tattn.flash_attention_kernel.copies == 1
+    assert tattn.flash_attention_kernel.launches_by_route == {"wgmma": 1, "cuda_cores": 0}
+    _close(got, tattn.flash_attention_plain(q, k, v), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [72, 136, 256])
+def test_flash_attention_bf16_outside_wgmma_takes_cuda_cores(cuda, D):
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda).to(torch.bfloat16)
+               for s in ((2, 65, 8, D), (2, 65, 2, D), (2, 65, 2, D)))
+    got = tattn.flash_attention_kernel(q, k, v)
+    assert tattn.flash_attention_kernel.launches_by_route == {"wgmma": 0, "cuda_cores": 1}
+    torch.cuda.synchronize()
+    _close(got, tattn.flash_attention_plain(q, k, v), 3e-2)
 
 
 def _ssd_operands(BC, Q, H, P, N, dev, dtype=torch.float32, seed=0):

@@ -325,8 +325,8 @@ def test_shingle_kernel_rejects_bad_operands():
 # the build
 # ---------------------------------------------------------------------------
 def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
-    assert _build.sources() == ["flash_attention", "fused_score", "fused_windowed_score", "lcs",
-                                "minhash", "shingle", "ssd_intra"]
+    assert _build.sources() == ["flash_attention", "flash_attention_sm90", "fused_score",
+                                "fused_windowed_score", "lcs", "minhash", "shingle", "ssd_intra"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
