@@ -10,7 +10,8 @@ phases, and exits non-zero if any phase fails:
    limit as ``nvidia-smi`` reports them.
 2. build   — compiles every kernel source with nvcc for sm_90a, in parallel;
    logs each source's build seconds and ptxas report, and requires HGMMA
-   (wgmma) instructions in the tensor-core flash-attention library's SASS.
+   (wgmma) instructions in the SASS of both tensor-core libraries (flash
+   attention and the SSD intra-chunk step).
 3. kernels — each Hopper kernel against its plain PyTorch version on the
    card, bit-equal, at edge shapes and at the main path's shapes.
 4. fig1    — the paper's Fig. 1 story through the fused kernel.
@@ -51,21 +52,27 @@ phases, and exits non-zero if any phase fails:
    against their plain versions at edge shapes (ragged lengths, head dims
    64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
    bfloat16 on the wgmma route and again on the CUDA-core route; SSD
-   states 64 and 128) and the chunked SSD scan against its plain version.
+   chunks 1/16/65/128, states and head dims 64 and 128, 9 heads, bfloat16
+   on both of #7's routes, float32 on the CUDA-core route, ``bf16_intra``
+   on the wgmma route) and the chunked SSD scan against its plain version
+   on each route.
 14. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
    the card against the same run on the CPU.
 15. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
    published widths (random bfloat16 weights from a seed) serve 4 prompts
    of 2,048 tokens and 32 greedy tokens each: the prefill launches #6 9
    (zamba2) and 40 (granite) times, every one on the wgmma route, and #7
-   54 times (zamba2); the first
-   call's kernel operands are rerun through the plain versions; prefill
-   and two teacher-forced decode steps are held against ``forward``.
+   54 times (zamba2), every one on its wgmma route; the first call's kernel
+   operands are rerun through the plain versions; prefill and two
+   teacher-forced decode steps are held against ``forward`` (whose float32
+   run takes #7's CUDA-core route).
    Each also profiles one prefill and 8 decode steps (device busy and
    idle shares, device time by kernel kind).
 16. lm timing — #6 at both models' operands and at prefill_32k's length,
    beside its plain version and ``scaled_dot_product_attention`` (and, at
-   granite's operands, the CUDA-core kernel); #7 at zamba2's operands.
+   granite's operands, the CUDA-core kernel); #7 at zamba2's operands on
+   both routes beside its plain version, with the tensor-core source's
+   ptxas registers, spills and HGMMA count.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
@@ -76,6 +83,7 @@ entry per kernel; the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -98,8 +106,8 @@ INT32_LANES_PER_SM = 64
 BOOST_CLOCK_HZ = 1.98e9
 INT32_OPS_PER_S = H100_SMS * INT32_LANES_PER_SM * BOOST_CLOCK_HZ
 # the data sheet's dense bf16 tensor-core rate and float32 rate outside the
-# tensor cores (the bounds of the flash-attention kernel, on bf16 operands,
-# and of the SSD kernel, whose reference products are float32)
+# tensor cores (the bounds of the tensor-core kernels, and of the SSD
+# kernel's CUDA-core route, whose products are float32)
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
@@ -182,12 +190,34 @@ def phase_build():
                 log(f"ptxas[{name}]: {line.strip()[:200]}")
     log(f"build: {len(logs)} sources in {secs:.2f} s")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("flash_attention_sm90"))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    hgmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HGMMA" in line]
-    check(hgmma, "flash_attention_sm90: no HGMMA instruction in its SASS")
-    log(f"flash_attention_sm90 SASS: {len(hgmma)} HGMMA instructions "
-        f"({', '.join(sorted(set(h.split()[0] for h in hgmma)))})")
+    figures = {}
+    for name in ("flash_attention_sm90", "ssd_intra_sm90"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        hgmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HGMMA" in line]
+        check(hgmma, f"{name}: no HGMMA instruction in its SASS")
+        log(f"{name} SASS: {len(hgmma)} HGMMA instructions "
+            f"({', '.join(sorted(set(h.split()[0] for h in hgmma)))})")
+        text = logs.get(name, "")
+        figures[name] = dict(
+            hgmma=len(hgmma), kernels=_ptxas_by_kernel(text),
+            build_s=float(m.group(1)) if (m := re.search(r"^nvcc \S+: ([\d.]+) s", text)) else None)
+    return figures
+
+
+def _ptxas_by_kernel(text):
+    """ptxas's registers and spill-store bytes for each instantiation in a
+    build log, keyed by its template arguments ("1,1,0")."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) or m.group(1)
+            out[cur] = {}
+        elif cur and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out[cur]["spill_store_bytes"] = int(m.group(1))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_b=1_048_573):
@@ -317,6 +347,7 @@ def _counted(fn):
     flash = wrappers["flash_attention_kernel"]
     flash.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     flash.copies = 0
+    wrappers["ssd_intra"].launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -618,8 +649,10 @@ def phase_shingle(torch, dev, main_types, sub_types, k=3):
     return counts
 
 
-def _time_ms(torch, fn, reps=5):
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+def _time_ms(torch, fn, reps=5, batch=1):
+    """Median of ``reps`` CUDA-event timings after one warm-up call, each
+    over ``batch`` calls back to back (divided by ``batch``: the wrapper's
+    host work then overlaps the previous launch, as on a busy stream)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -627,10 +660,11 @@ def _time_ms(torch, fn, reps=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -1076,7 +1110,8 @@ def phase_lm_kernels(torch, dev):
     """Kernels #6 and #7 against their plain versions on the card at edge
     shapes: float32 within 1e-4, bfloat16 attention within 3e-2 on both of
     #6's routes (the wrapper's wgmma route, then the CUDA-core kernel run
-    by name on the same operands)."""
+    by name on the same operands); #7 within 1e-4 on both of its routes
+    (5e-2 under ``bf16_intra``), alone and in the chunked scan."""
     import numpy as np
 
     from repro_torch.kernels.attention import kernel as attn
@@ -1116,27 +1151,94 @@ def phase_lm_kernels(torch, dev):
     log(f"flash_attention_kernel: {n} edge cases (S 1/65/1000, D 64/80/128, rep 1/4, causal and "
         f"not; bfloat16 on both routes) within tolerance; worst "
         + ", ".join(f"{r} {d} {e:.3g}" for (r, d), e in sorted(worst.items())))
+    si = ssd.ssd_intra
+    worst, n = {}, 0
+
+    def hold(what, got, want, tol=1e-4):
+        torch.cuda.synchronize()
+        errs = [_max_err(g, w) for g, w in zip(got, want)]
+        check(all(g.dtype == torch.float32 and g.shape == w.shape for g, w in zip(got, want)),
+              f"{what}: outputs {[(g.dtype, tuple(g.shape)) for g in got]}")
+        check(max(errs) <= tol, f"{what}: max |kernel - plain| (y, state, cdecay) {errs} > {tol}")
+        return max(errs)
+
+    def both_routes(ops, what):
+        """The wrapper (its route counted) and the other route by name."""
+        nonlocal n
+        x, _, _, B_, _ = ops
+        path = ssd.route(x.dtype, x.shape[1], x.shape[3], B_.shape[2])
+        want = ssd.ssd_intra_plain(*ops)
+        before = si.launches_by_route[path]
+        got = {path: si(*ops)}
+        check(si.launches_by_route[path] == before + 1, f"ssd_intra {what}: not launched on the {path} route")
+        if path == "wgmma":
+            got["cuda_cores"] = ssd.launch("cuda_cores", *ops)
+        for r, out in got.items():
+            key = (r, str(x.dtype).removeprefix("torch."))
+            worst[key] = max(worst.get(key, 0.0), hold(f"ssd_intra [{r}] {what}", out, want))
+            n += 1
+
+    # the tensor-core route's edges: ragged chunks, one and two 64-column
+    # tiles of N and P, 13 heads (no block size divides them)
+    for Q in (1, 16, 65, 128):
+        for N in (64, 128):
+            for P in (64, 128):
+                both_routes(_ssd_operands(torch, dev, 3, Q, 13, P, N, torch.bfloat16, rng),
+                            f"Q={Q} N={N} P={P} H=13 bfloat16")
     for N in (64, 128):
         for dtype in (torch.float32, torch.bfloat16):
-            ops = _ssd_operands(torch, dev, 8, 128, 16, 64, N, dtype, rng)
-            got = ssd.ssd_intra(*ops)
-            torch.cuda.synchronize()
-            errs = [_max_err(g, w) for g, w in zip(got, ssd.ssd_intra_plain(*ops))]
-            check(max(errs) <= 1e-4, f"ssd_intra N={N} {dtype}: max |kernel - plain| (y, state, "
-                  f"cdecay) {errs} > 1e-4")
-            log(f"ssd_intra Q=128 N={N} P=64 {dtype}: y, state, cdecay within 1e-4 of the plain "
-                f"version ({max(errs):.3g})")
+            both_routes(_ssd_operands(torch, dev, 8, 128, 16, 64, N, dtype, rng),
+                        f"Q=128 N={N} P=64 H=16 {dtype}")
+    log(f"ssd_intra: {n} edge cases (Q 1/16/65/128, N and P 64/128, 13 heads; Q 128 with 16 heads in "
+        "float32 and bfloat16; bfloat16 on both routes) within 1e-4 of the plain version; worst "
+        + ", ".join(f"{r} {d} {e:.3g}" for (r, d), e in sorted(worst.items())))
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((8, 128, 16, 64, 64), (3, 65, 9, 128, 128)):
+            ops = _ssd_operands(torch, dev, *shape, dtype, rng)
+            before = si.launches_by_route["wgmma"]
+            got = si(*ops, bf16_intra=True)
+            check(si.launches_by_route["wgmma"] == before + 1, "ssd_intra bf16_intra: not on the wgmma route")
+            err = hold(f"ssd_intra bf16_intra {shape} {dtype}", got,
+                       ssd.ssd_intra_plain(*ops, bf16_intra=True), 5e-2)
+            log(f"ssd_intra bf16_intra (BC, Q, H, P, N) {shape} {dtype}: wgmma route within 5e-2 of the "
+                f"plain version ({err:.3g})")
+
     B, S, H, P, N = 2, 512, 16, 64, 64
     x, Bm, Cm = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
                  for sh in ((B, S, H, P), (B, S, 1, N), (B, S, 1, N)))
     dt = torch.as_tensor(rng.uniform(1e-3, 1e-1, size=(B, S, H)).astype(np.float32), device=dev)
     A = -torch.as_tensor(rng.uniform(1.0, 16.0, size=H).astype(np.float32), device=dev)
     D = torch.as_tensor(rng.normal(size=H).astype(np.float32), device=dev)
+    si.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     y, st = ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    check(si.launches_by_route == {"wgmma": 0, "cuda_cores": 1}, f"float32 scan routes {si.launches_by_route}")
     ry, rst = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
     errs = [_max_err(y, ry), _max_err(st, rst)]
     check(max(errs) <= 1e-4, f"ssd_chunked S={S} (4 chunks): max |op - ref| (y, state) {errs} > 1e-4")
-    log(f"ssd_chunked S={S}, 4 chunks: y and final state within 1e-4 of the plain scan ({max(errs):.3g})")
+    log(f"ssd_chunked S={S}, 4 chunks, float32 (CUDA-core route): y and final state within 1e-4 of "
+        f"the plain scan ({max(errs):.3g})")
+    # the wgmma route in the scan: bfloat16-valued float32 operands, the
+    # intra-chunk step given them in bfloat16, so that y stays float32
+    x, Bm, Cm = (t.to(torch.bfloat16).float() for t in (x, Bm, Cm))
+
+    def intra16(x_, cum_, dt_, B_, C_, *, bf16_intra):
+        return si(x_.to(torch.bfloat16), cum_, dt_, B_.to(torch.bfloat16), C_.to(torch.bfloat16),
+                  bf16_intra=bf16_intra)
+
+    y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=False, intra=intra16)
+    check(si.launches_by_route == {"wgmma": 1, "cuda_cores": 1}, f"bf16 scan routes {si.launches_by_route}")
+    ry, rst = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    errs = [_max_err(y, ry), _max_err(st, rst)]
+    check(max(errs) <= 1e-4, f"ssd_scan S={S} on the wgmma route: max |op - ref| (y, state) {errs} > 1e-4")
+    log(f"ssd_scan S={S}, 4 chunks, bfloat16 operands (wgmma route): y and final state within 1e-4 of "
+        f"the plain scan ({max(errs):.3g})")
+    y, st = ssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    check(si.launches_by_route == {"wgmma": 2, "cuda_cores": 1}, f"bf16_intra scan routes {si.launches_by_route}")
+    ry, rst = ssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    errs = [_max_err(y, ry), _max_err(st, rst)]
+    check(max(errs) <= 5e-2, f"ssd_chunked S={S} bf16_intra: max |op - ref| (y, state) {errs} > 5e-2")
+    log(f"ssd_chunked S={S}, 4 chunks, bf16_intra (wgmma route): within 5e-2 of the plain scan "
+        f"({max(errs):.3g})")
 
 
 def _to(tree, where):
@@ -1182,8 +1284,10 @@ def phase_lm_small(torch, dev):
         V = cfg.vocab_size
         err = _max_err(got[..., :V], want[..., :V])
         check(err <= LM_LOGITS_ATOL, f"lm small {arch}: card vs CPU logits differ by {err}")
+        routes = {k: dict(w.launches_by_route) for k, w in _wrappers().items() if k in _lm_kernels(cfg)}
         log(f"lm small {arch} (reduced): prefill + 2 decode steps on the card = the CPU run "
-            f"(max |logits diff| {err:.3g}), launches { {k: counts[k] for k in _lm_kernels(cfg)} }")
+            f"(max |logits diff| {err:.3g}), launches { {k: counts[k] for k in _lm_kernels(cfg)} }, "
+            f"routes {routes}")
 
 
 def _kernel_kind(name):
@@ -1289,10 +1393,12 @@ def phase_lm_full(torch, dev, arch, expect):
         prefill_s = time.perf_counter() - t0
     got = {k: counts[k] for k in expect}
     check(got == expect, f"{tag}: prefill launches {got}, expected {expect}")
-    routes = dict(attn.flash_attention_kernel.launches_by_route)
+    routes = {"flash_attention_kernel": dict(attn.flash_attention_kernel.launches_by_route),
+              "ssd_intra": dict(ssd.ssd_intra.launches_by_route)}
+    for name, n in expect.items():  # bfloat16 activations: every launch on the tensor cores
+        want_routes = {"wgmma": n, "cuda_cores": 0}
+        check(routes[name] == want_routes, f"{tag}: {name} routes {routes[name]}, expected {want_routes}")
     if "flash_attention_kernel" in expect:
-        want_routes = {"wgmma": expect["flash_attention_kernel"], "cuda_cores": 0}
-        check(routes == want_routes, f"{tag}: flash attention routes {routes}, expected {want_routes}")
         check(attn.flash_attention_kernel.copies == 0,
               f"{tag}: {attn.flash_attention_kernel.copies} operand copies before flash attention")
     check(logits.shape == (LM_BATCH, 1, padded_vocab(cfg)) and bool(torch.isfinite(logits[..., :V]).all()),
@@ -1309,10 +1415,15 @@ def phase_lm_full(torch, dev, arch, expect):
         operands["flash_attention_kernel"] = (q, k, v, causal)
     if "ssd_intra" in expect:
         ops = si.args
+        x = ops[0]
+        path = ssd.route(x.dtype, x.shape[1], x.shape[3], ops[3].shape[-1])
+        before = ssd.ssd_intra.launches_by_route[path]
         errs = [_max_err(g, w) for g, w in zip(ssd.ssd_intra(*ops), ssd.ssd_intra_plain(*ops))]
+        check(ssd.ssd_intra.launches_by_route[path] == before + 1, f"{tag}: ssd_intra left the {path} route")
         check(max(errs) <= 1e-4, f"{tag}: ssd_intra at the path's operands differs from plain by {errs}")
-        log(f"{tag}: ssd_intra at its first call's operands x {list(ops[0].shape)} {ops[0].dtype}, "
-            f"B {list(ops[3].shape)}: y, state, cdecay within 1e-4 of the plain version ({max(errs):.3g})")
+        log(f"{tag}: ssd_intra at its first call's operands x {list(x.shape)} {x.dtype}, "
+            f"B {list(ops[3].shape)} on the path's {path} route: y, state, cdecay within 1e-4 of the "
+            f"plain version ({max(errs):.3g})")
         operands["ssd_intra"] = ops
 
     with torch.inference_mode():
@@ -1341,7 +1452,7 @@ def phase_lm_full(torch, dev, arch, expect):
     cb = cache_bytes(cfg, LM_BATCH, LM_MAX_LEN)
     log(f"{tag}: {param_count(cfg)} parameters (bf16, init {init_s:.3f} s); prefill {LM_BATCH} x "
         f"{LM_PROMPT} tokens {prefill_s:.3f} s ({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s), "
-        f"launches {got}, flash attention routes {routes}; decode {LM_GEN} greedy steps {decode_s:.3f} s "
+        f"launches {got}, routes {routes}; decode {LM_GEN} greedy steps {decode_s:.3f} s "
         f"({decode_s / LM_GEN * 1e3:.2f} ms a step for {LM_BATCH} requests); cache {cb} bytes; "
         f"peak device memory {peak:.2f} GiB; request 0 generated {gen[0, :8].tolist()}...")
     del cache, logits
@@ -1372,10 +1483,16 @@ def phase_lm_full(torch, dev, arch, expect):
         del params
         layers.COMPUTE_DTYPE = torch.float32  # activations follow it
         try:
-            fwd32 = forward(p32, {"tokens": tokens}, cfg)[0][:, at, :V].clone()
+            fwd32, fwd32_counts = _counted(lambda: forward(p32, {"tokens": tokens}, cfg)[0][:, at, :V].clone())
         finally:
             layers.COMPUTE_DTYPE = torch.bfloat16
         del p32
+    fwd32_routes = {name: dict(w.launches_by_route) for name, w in _wrappers().items()
+                    if name in expect}
+    for name in expect:  # float32 activations: every launch on the CUDA cores
+        want_routes = {"wgmma": 0, "cuda_cores": fwd32_counts[name]}
+        check(fwd32_counts[name] > 0 and fwd32_routes[name] == want_routes,
+              f"{tag}: float32 forward {name} routes {fwd32_routes[name]}, expected {want_routes}")
     vs16 = [_max_err(served[i], fwd16[:, i]) for i in range(3)]
     vs32 = [_max_err(served[i], fwd32[:, i]) for i in range(3)]
     floor = [_max_err(fwd16[:, i], fwd32[:, i]) for i in range(3)]
@@ -1386,7 +1503,8 @@ def phase_lm_full(torch, dev, arch, expect):
     log(f"{tag}: max |logits diff| over positions {LM_PROMPT - 1}..{LM_PROMPT + 1} (prefill, two "
         f"teacher-forced decode steps): vs forward {[float(f'{e:.4g}') for e in vs16]}; vs a float32 "
         f"forward {[float(f'{e:.4g}') for e in vs32]}, where the bfloat16 forward is "
-        f"{[float(f'{e:.4g}') for e in floor]} (logits max |.| {float(fwd32.abs().max()):.3f})")
+        f"{[float(f'{e:.4g}') for e in floor]} (logits max |.| {float(fwd32.abs().max()):.3f}); "
+        f"the float32 forward's routes {fwd32_routes}")
     return counts, operands, routes
 
 
@@ -1441,9 +1559,27 @@ def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
     return row
 
 
-def phase_timing_lm(torch, dev, zamba, granite):
+def _ssd_wgmma_flops(BC, Q, H, P, N, heads_per_block, bf16_intra=False):
+    """Tensor-core flops that ``ssd_intra_sm90.cu`` runs: C B^T once a
+    block (m64n128, N rounded up to 64, per warpgroup that has rows), then
+    per head y (4 k-steps for rows 0-63, 8 for rows 64-127) and the state (8
+    k-steps per 64-row tile of N), each k-step one m64n64k16 per 64 columns
+    of P and per bfloat16 part (3 and 3; 1 and 2 under ``bf16_intra``)."""
+    ncn, ncp = -(-N // 64), -(-P // 64)
+    wgs = 2 if Q > 64 else 1
+    blocks = BC * -(-H // heads_per_block)
+    parts_m, parts_w = (1, 2) if bf16_intra else (3, 3)
+    mma = 2 * 64 * 64 * 16
+    s = blocks * wgs * 2 * 64 * 128 * 64 * ncn
+    y = BC * H * (4 + 4 * (wgs - 1) * 2) * parts_m * ncp * mma
+    state = BC * H * 8 * parts_w * ncp * ncn * mma
+    return s + y + state
+
+
+def phase_timing_lm(torch, dev, zamba, granite, figures):
     """#6 at zamba2's and granite's layer operands and at prefill_32k's
-    length (B = 1, S = 32,768, granite's heads); #7 at zamba2's operands."""
+    length (B = 1, S = 32,768, granite's heads); #7 at zamba2's operands on
+    both routes."""
     import numpy as np
 
     from repro_torch.kernels.ssd import kernel as ssd
@@ -1453,7 +1589,7 @@ def phase_timing_lm(torch, dev, zamba, granite):
                       f"zamba2-2.7b prefill {LM_BATCH} x {LM_PROMPT}")
     rows = [_flash_row(torch, *g_ops["flash_attention_kernel"], g_counts["flash_attention_kernel"],
                        f"granite-3-8b prefill {LM_BATCH} x {LM_PROMPT}", cuda_cores=True)]
-    rows[0]["launches_by_route"] = g_routes
+    rows[0]["launches_by_route"] = g_routes["flash_attention_kernel"]
     rng = np.random.default_rng(2)
     q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev).to(torch.bfloat16)
                for sh in ((1, PREFILL_32K, 32, 128), (1, PREFILL_32K, 8, 128), (1, PREFILL_32K, 8, 128)))
@@ -1462,33 +1598,69 @@ def phase_timing_lm(torch, dev, zamba, granite):
     flash = dict(name="flash_attention_kernel", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                  replaces="src/repro/kernels/attention/kernel.py:111", **main,
-                 launches_by_route=z_routes,
+                 launches_by_route=z_routes["flash_attention_kernel"],
                  other_route=dict(name="cuda_cores", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                                   takes="float32, and bfloat16 head dims outside 16..128 step 16"),
                  rows=rows)
 
-    ops = z_ops["ssd_intra"]
+    # the path hands the wrapper views of B and C with the row stride of the
+    # fused B|C channels; the wrapper copies them, a route run by name does not
+    ops = tuple(t.contiguous() for t in z_ops["ssd_intra"])
     x, _, _, B_, _ = ops
     BC, Q, H, P = x.shape
     N = B_.shape[-1]
+    path = ssd.route(x.dtype, Q, P, N)
+    check(path == "wgmma", f"zamba2's SSD operands take the {path} route")
     run = lambda: ssd.ssd_intra(*ops)  # noqa: E731
+    other = lambda: ssd.launch("cuda_cores", *ops)  # noqa: E731
     plain = lambda: ssd.ssd_intra_plain(*ops)  # noqa: E731
-    ms, plain_ms = _time_ms(torch, run), _time_ms(torch, plain, reps=3)
-    err = max(_max_err(g, w) for g, w in zip(run(), plain()))
+    # 10 launches an event pair: a lone call's ~0.1 ms of host work in the
+    # wrapper would count as device time at this kernel's length
+    turns = [_time_ms(torch, f, batch=10) for f in (run, other, other, run)]
+    ms, other_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    single_ms = _time_ms(torch, run)
+    plain_ms = _time_ms(torch, plain, reps=3)
+    bf16_intra_ms = _time_ms(torch, lambda: ssd.ssd_intra(*ops, bf16_intra=True), batch=10)
+    want = plain()
+    err = max(_max_err(g, w) for g, w in zip(run(), want))
+    other_err = max(_max_err(g, w) for g, w in zip(other(), want))
     tri = Q * (Q + 1) // 2
-    # C B^T once a chunk (lower triangle), then per chunk and head M x over
-    # the causal pairs and the state x^T (B w); 2 flops a multiply-add
+    # the function's float32 work: C B^T once a chunk (lower triangle), then
+    # per chunk and head M x over the causal pairs and the state x^T (B w);
+    # 2 flops a multiply-add.  The CUDA-core route does this in float32.
     flops = 2 * BC * tri * N + 2 * BC * H * (tri * P + Q * P * N)
     nbytes = sum(t.numel() * t.element_size() for t in ops) + 4 * (x.numel() + BC * H * P * N + BC * H)
-    bound, by = _bound_ms(nbytes, flops, FP32_FLOPS)
-    log(f"timing ssd_intra [zamba2-2.7b prefill] x {list(x.shape)} N={N}: {ms:.3f} ms (plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by}: {flops:.3g} flops at 67 TFLOP/s fp32, "
-        f"{nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s; library_ms: no single PyTorch "
+    fp32_bound, fp32_by = _bound_ms(nbytes, flops, FP32_FLOPS)
+    hg = ssd.heads_per_block(BC, H, P, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tensor_flops = _ssd_wgmma_flops(BC, Q, H, P, N, hg)
+    bound, by = _bound_ms(nbytes, tensor_flops, BF16_TENSOR_FLOPS)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ptxas = figures["ssd_intra_sm90"]
+    log(f"timing ssd_intra [zamba2-2.7b prefill] x {list(x.shape)} N={N}: {ms:.3f} ms on the wgmma "
+        f"route (10 launches an event pair, turns {[round(v, 4) for v in turns]}; one launch an event "
+        f"pair {single_ms:.3f} ms; the CUDA-core kernel {other_ms:.3f} ms = "
+        f"{other_ms / ms:.1f}x; plain {plain_ms:.3f} ms; bf16_intra {bf16_intra_ms:.3f} ms); bound "
+        f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB = {bytes_ms:.4f} ms; {tensor_flops:.3g} tensor-core "
+        f"flops at 989 TFLOP/s bf16 = {tensor_flops / BF16_TENSOR_FLOPS * 1e3:.4f} ms; the CUDA-core "
+        f"route's {flops:.3g} flops at 67 TFLOP/s fp32 = {fp32_bound:.4f} ms by {fp32_by}); "
+        f"{flops / ms / 1e9:.2f} TFLOP/s of the function's float32 work, {tensor_flops / ms / 1e9:.2f} "
+        f"TFLOP/s on the tensor cores ({hg} heads a block); max |kernel - plain| {err:.3g} (CUDA cores "
+        f"{other_err:.3g}); "
+        f"ssd_intra_sm90 ptxas (<N chunks, P chunks, bf16_intra>: registers, spill-store bytes): "
+        f"{ {k: (v.get('registers'), v.get('spill_store_bytes')) for k, v in ptxas['kernels'].items()} }, "
+        f"{ptxas['hgmma']} HGMMA, built in {ptxas['build_s']} s; library_ms: no single PyTorch "
         "call computes the masked decayed product and the chunk states")
     ssd_entry = dict(
-        name="ssd_intra", route="cuda", source="src/repro_torch/kernels/csrc/ssd_intra.cu",
+        name="ssd_intra", route="cuda", source="src/repro_torch/kernels/csrc/ssd_intra_sm90.cu",
         replaces="src/repro/kernels/ssd/kernel.py:69", launches=z_counts["ssd_intra"],
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        launches_by_route=z_routes["ssd_intra"], kernel_route=path, bytes_bound_ms=bytes_ms,
+        tensor_flops=tensor_flops, heads_per_block=hg, tflops=flops / ms / 1e9,
+        fp32_operations_bound_ms=fp32_bound,
+        bf16_intra_ms=bf16_intra_ms, single_call_ms=single_ms, ptxas=ptxas,
+        other_route=dict(name="cuda_cores", source="src/repro_torch/kernels/csrc/ssd_intra.cu",
+                         ms=other_ms, max_abs_err=other_err, bound_ms=fp32_bound, bound_by=fp32_by,
+                         takes="float32 operands, and bfloat16 shapes with P or N not a multiple of 16"),
         path=f"zamba2-2.7b prefill {LM_BATCH} x {LM_PROMPT}",
         shape=f"x {list(x.shape)} {str(x.dtype).removeprefix('torch.')} N={N}")
     return [flash, ssd_entry]
@@ -1510,7 +1682,7 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build()
+    figures = phase_build()
     phase_kernels(torch, dev)
     phase_windowed_kernel(torch, dev)
     phase_fig1(dev)
@@ -1544,7 +1716,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     granite = phase_lm_full(torch, dev, "granite-3-8b", {"flash_attention_kernel": 40})
     torch.cuda.empty_cache()
-    entries += phase_timing_lm(torch, dev, zamba, granite)
+    entries += phase_timing_lm(torch, dev, zamba, granite, figures)
     del zamba, granite
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -13,10 +13,14 @@
 //
 // Replaces the TPU kernel repro/kernels/ssd/kernel.py::ssd_intra_pallas,
 // with the numbers of repro/models/mamba.py::_ssd_chunked, which the
-// serving path runs: everything in float32 (no TF32: the reference's intra-
-// chunk products are float32 unless ssm_bf16_intra, which this kernel does
-// not take), and y returned in float32, not rounded to x's dtype as the
-// Pallas out_shape does.
+// serving path runs: everything in float32, and y returned in float32, not
+// rounded to x's dtype as the Pallas out_shape does.  This is the route for
+// float32 operands, and for bfloat16 shapes the tensor-core kernel does not
+// take (P or N not a multiple of 16): a float32 x, B or C is not exact in
+// bfloat16, so bf16 tensor cores would need every operand split, and TF32
+// would round the reference's float32 products.  bfloat16 operands with P
+// and N multiples of 16, and ssm_bf16_intra (which this kernel does not
+// take), run ssd_intra_sm90.cu on the tensor cores.
 //
 // Design: C B^T depends on the chunk only (one B/C group), so one block of
 // 256 threads takes one chunk and a run of HG heads and computes C B^T once,
@@ -37,8 +41,9 @@
 // the CUDA cores (67 TFLOP/s) the operations bound it at the serving
 // path's shapes; the bytes are a third of that.  A shared-memory load feeds
 // 4 multiply-adds here (one float4 of M, one x value), so the kernel runs
-// at a fraction of that rate; mma on tensor cores would need TF32 or bf16,
-// which the reference's float32 products exclude.
+// at a fraction of that rate.  The serving path's bfloat16 operands take
+// ssd_intra_sm90.cu instead, where the float32 M goes to the bf16 tensor
+// cores as three bfloat16 parts whose sum is exact.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -1,9 +1,9 @@
-"""Public op: the chunked SSD scan through the Hopper intra-chunk kernel.
+"""Public op: the chunked SSD scan through the Hopper intra-chunk kernels.
 
 Port of ``repro/kernels/ssd/ops.py::ssd_chunked`` with the semantics of
 ``repro/models/mamba.py::_ssd_chunked``: the float32 within-chunk cumsum of
 ``dt * A``, the intra-chunk step (:func:`~repro_torch.kernels.ssd.kernel.
-ssd_intra`: the CUDA kernel on the card, its plain version on the CPU), the
+ssd_intra`: a CUDA kernel on the card, its plain version on the CPU), the
 inter-chunk recurrence of the ``[H, P, N]`` states and the rank-one-per-
 token inter-chunk output, in torch.  ``y_intra`` stays float32 until the
 one final rounding to ``x.dtype``, as in ``_ssd_chunked`` (the Pallas op
@@ -60,5 +60,6 @@ def ssd_chunked(x, dt, A, B_, C_, D, *, chunk: int = 128, bf16_intra: bool = Fal
     """x [B,S,H,P], dt [B,S,H] (> 0), A [H] (< 0), B_/C_ [B,S,G=1,N], D [H]
     -> (y [B,S,H,P], final_state [B,H,P,N]).  S must be a multiple of
     ``min(chunk, S)``.  On CUDA tensors the intra-chunk step launches the
-    kernel (which refuses ``bf16_intra``)."""
+    kernel :func:`~repro_torch.kernels.ssd.kernel.route` names (the
+    tensor-core kernel for bfloat16 operands and for ``bf16_intra``)."""
     return ssd_scan(x, dt, A, B_, C_, D, chunk=chunk, bf16_intra=bf16_intra, intra=ssd_intra)

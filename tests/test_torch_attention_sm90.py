@@ -102,8 +102,16 @@ def test_launcher_prototype_matches_the_source(path, monkeypatch):
     assert argtypes[:4] == [ctypes.c_void_p] * 4 and argtypes[-1] is ctypes.c_void_p
 
 
+def _with_headers(source):
+    """The text of ``csrc/<source>.cu`` and of the ``csrc`` headers it includes."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    for name in re.findall(r'#include "(\w+\.cuh)"', text):
+        text += (_build.CSRC / name).read_text()
+    return text
+
+
 def test_wgmma_source_uses_tensor_cores_and_tma():
-    text = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    text = _with_headers("flash_attention_sm90")
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "const __grid_constant__ CUtensorMap", "cudaGetDriverEntryPoint"):
         assert needle in text, needle

@@ -14,7 +14,10 @@ float32 and sum in another order than their plain versions: within 1e-4 in
 float32, and 3e-2 for bfloat16 attention (one bfloat16 rounding of the
 output, the JAX kernel tests' bar; the bfloat16 tensor-core route also
 rounds p to bfloat16 before p @ v, as the Pallas body does, and stays
-within the same bar); a reduced model served on the card
+within the same bar; the SSD step's tensor-core route feeds the float32 M
+and B * w to bf16 wgmma as three bfloat16 parts whose sum is exact, and
+stays within 1e-4 too, and 5e-2 under ``bf16_intra``, the bar of the
+reference's own bfloat16 mode); a reduced model served on the card
 against the same run on the CPU within 5e-2 in its logits (bfloat16
 activations, the reference's decode-vs-forward bar).
 """
@@ -50,6 +53,7 @@ def cuda():
         wrapper.launches = 0
     tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     tattn.flash_attention_kernel.copies = 0
+    tssd.ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -377,15 +381,51 @@ def _ssd_operands(BC, Q, H, P, N, dev, dtype=torch.float32, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,N,P,H", [(128, 64, 64, 80), (128, 128, 64, 64), (16, 64, 64, 3),
                                      (10, 16, 32, 9), (128, 128, 128, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_intra_kernel_equals_plain(cuda, Q, N, P, H, dtype):
+@pytest.mark.parametrize("dtype,path", [(torch.float32, "cuda_cores"), (torch.bfloat16, "cuda_cores"),
+                                        (torch.bfloat16, "wgmma")])
+def test_ssd_intra_kernel_equals_plain(cuda, Q, N, P, H, dtype, path):
+    """Both routes on the same operands: the wrapper where it takes this
+    route, else the route's kernel run by name (counted nowhere)."""
     ops = _ssd_operands(6, Q, H, P, N, cuda, dtype, seed=Q + N + P)
-    got = tssd.ssd_intra(*ops)
-    assert tssd.ssd_intra.launches == 1
+    if tssd.route(dtype, Q, P, N) == path:
+        got = tssd.ssd_intra(*ops)
+        assert tssd.ssd_intra.launches == 1 and tssd.ssd_intra.launches_by_route[path] == 1
+    else:
+        got = tssd.launch(path, *ops)
+        assert tssd.ssd_intra.launches == 0
     torch.cuda.synchronize()
     for g, w in zip(got, tssd.ssd_intra_plain(*ops)):
         assert g.shape == w.shape and g.dtype == torch.float32
         _close(g, w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 16, 65, 128])
+@pytest.mark.parametrize("N,P", [(64, 64), (128, 64), (64, 128), (128, 128)])
+def test_ssd_intra_wgmma_route_edges(cuda, Q, N, P):
+    """Ragged chunks (rows past Q zero-filled by TMA and masked), one and two
+    64-column tiles of N and P, and 13 heads (no block size divides them:
+    the last block of a chunk has fewer heads)."""
+    ops = _ssd_operands(3, Q, 13, P, N, cuda, torch.bfloat16, seed=Q * N + P)
+    got = tssd.ssd_intra(*ops)
+    assert tssd.ssd_intra.launches_by_route == {"wgmma": 1, "cuda_cores": 0}
+    torch.cuda.synchronize()
+    for g, w in zip(got, tssd.ssd_intra_plain(*ops)):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,P,H", [(128, 64, 64, 80), (65, 128, 128, 9), (10, 16, 32, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_bf16_intra_on_the_wgmma_route(cuda, Q, N, P, H, dtype):
+    """``bf16_intra`` rounds where the plain version rounds (float32 operands
+    are rounded to bfloat16 first): within 5e-2, one bfloat16 rounding."""
+    ops = _ssd_operands(4, Q, H, P, N, cuda, dtype, seed=Q + H)
+    got = tssd.ssd_intra(*ops, bf16_intra=True)
+    assert tssd.ssd_intra.launches_by_route == {"wgmma": 1, "cuda_cores": 0}
+    torch.cuda.synchronize()
+    for g, w in zip(got, tssd.ssd_intra_plain(*ops, bf16_intra=True)):
+        _close(g, w, 5e-2)
 
 
 @pytest.mark.cuda
@@ -402,8 +442,11 @@ def test_ssd_scan_on_the_card_and_refusals(cuda):
     ry, rst = tssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
     _close(y, ry, 1e-4)
     _close(st, rst, 1e-4)
-    with pytest.raises(ValueError, match="bf16_intra"):
-        tssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    y16, st16 = tssd_ops.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    assert tssd.ssd_intra.launches_by_route == {"wgmma": 1, "cuda_cores": 1}
+    ry16, rst16 = tssd_ref.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128, bf16_intra=True)
+    _close(y16, ry16, 5e-2)
+    _close(st16, rst16, 5e-2)
     with pytest.raises(TypeError, match="one dtype"):
         tssd.ssd_intra(*_ssd_operands(2, 16, 2, 8, 8, cuda)[:3], Bm[:2, :16, 0].bfloat16(),
                        Cm[:2, :16, 0])

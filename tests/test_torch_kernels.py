@@ -326,7 +326,8 @@ def test_shingle_kernel_rejects_bad_operands():
 # ---------------------------------------------------------------------------
 def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
     assert _build.sources() == ["flash_attention", "flash_attention_sm90", "fused_score",
-                                "fused_windowed_score", "lcs", "minhash", "shingle", "ssd_intra"]
+                                "fused_windowed_score", "lcs", "minhash", "shingle", "ssd_intra",
+                                "ssd_intra_sm90"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -477,10 +478,12 @@ def test_ssd_intra_plain_matches_pallas_kernel(BC, Q, H, P, N):
 
 
 def test_ssd_plain_bf16_intra_matches_jax():
-    """``ssm_bf16_intra`` (no config sets it) rounds the intra-chunk score
-    and decay matrices to bfloat16 in both packages; the plain version
-    carries it (the kernel refuses it).  5e-2: values one bfloat16 rounding
-    apart where the two packages' exp differ by an ulp."""
+    """``ssm_bf16_intra`` (no registered config sets it; the reference's
+    perf sweeps in ``repro/launch/perf.py`` do) rounds the intra-chunk
+    score and decay matrices to bfloat16 in both packages; the plain
+    version carries it, and on the card the tensor-core SSD kernel.  5e-2:
+    values one bfloat16 rounding apart where the two packages' exp differ
+    by an ulp."""
     arrs = _ssd_inputs(1, 64, 4, 32, 16, 5)
     y, st = t_ssd_ops.ssd_chunked(*map(T, arrs), chunk=32, bf16_intra=True)
     ry, rst = jM._ssd_chunked(*map(jnp.asarray, arrs), chunk=32, bf16_intra=True)
