@@ -11,28 +11,39 @@ phases, and exits non-zero if any phase fails:
 2. build   — compiles every kernel source with nvcc for sm_90a, in parallel;
    logs each source's build seconds and ptxas report, and requires HGMMA
    (wgmma) instructions in the SASS of both tensor-core libraries (flash
-   attention and the SSD intra-chunk step).
+   attention and the SSD intra-chunk step), and no shared or local memory
+   instruction in the fused scorers' register kernels at the paths' widths
+   (whose DP instructions a cell it counts).
 3. kernels — each Hopper kernel against its plain PyTorch version on the
-   card, bit-equal, at edge shapes and at the main path's shapes.
+   card, bit-equal, at edge shapes and at the main path's shapes; the fused
+   scorers also on identical pairs (with and without codes equal to the
+   side sentinels), a PAD tail, two tables with iota indices and the
+   shared-memory route.
 4. fig1    — the paper's Fig. 1 story through the fused kernel.
 5. small   — a 3,000-trajectory world on the card (kernel impls) against the
    plain CPU engine: identical similar pairs, communities and scores.
 6. main    — the one-shot SSH engine on the paper's scalability world
-   (1,000,000 trajectories, 300 types) with ``lcs_impl="fused"``; a
-   1M-pair slice of its scored buffer is re-scored by the plain version.
+   (1,000,000 trajectories, 300 types) with ``lcs_impl="fused"``, on the
+   register route; 1M-pair slices of its scored buffer, at its head and
+   across its count into the PAD tail, are re-scored by the plain version;
+   the score stage is split into the PAD clamp, the kernel, the
+   ``exact_mss`` recompute and the host's mask and pair set.
 7. kernel  — 200,000 trajectories with ``lcs_impl="kernel"`` and "fused":
    equal similar pairs and communities.
 8. subtraj — the subtrajectory mode (``subtraj_window=8``) on fig13's
    forest with trajectories of 10-20 places: 2,000 trajectories (W = 8 and
    W >= L) against the plain "wavefront" engine on the card; 100,000
-   trajectories with ``lcs_impl="fused"`` (a 1M-pair slice of the window
-   buffer re-scored by the plain version); 20,000 with "kernel" against
-   "fused".
+   trajectories with ``lcs_impl="fused"`` (1M-pair slices of the window
+   buffer, at its head and across its count, re-scored by the plain
+   version); 20,000 with "kernel" against "fused".
 9. shingle — the public ``shingle_keys`` op (which neither engine calls) on
    the main world's type codes, counted, and the kernel against its plain
    version there and on the subtrajectory world's window view.
 10. timing — each kernel and its plain version on its path's inputs (CUDA
-   events), beside the least time the card could take.
+   events), beside the least time the card could take; the fused scorers
+   also by the launch alone (ten an event pair), against the shared-memory
+   route and the parent design in the same run, and beside the bound of
+   the DP cells these inputs need.
 11. minhash kernel — the MinHash kernel against its plain version, bit-equal,
    at edge shapes, on the main world's type codes and on the subtrajectory
    world's window view.
@@ -82,6 +93,7 @@ entry per kernel; the last line is
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -202,7 +214,59 @@ def phase_build():
         figures[name] = dict(
             hgmma=len(hgmma), kernels=_ptxas_by_kernel(text),
             build_s=float(m.group(1)) if (m := re.search(r"^nvcc \S+: ([\d.]+) s", text)) else None)
+    for name, width in (("fused_score", 10), ("fused_windowed_score", SUB_WINDOW)):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        figures[name] = _register_kernel_figures(name, sass, logs.get(name, ""), width)
     return figures
+
+
+# the register kernels' template flag of the DP (csrc/pair_dp.cuh kDp)
+DP_FLAG = 4
+
+
+def _sass_by_kernel(sass):
+    """SASS opcodes of each register-route instantiation, keyed "W,F"."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"regsILi(\d+)ELi(\d+)E", part.split("\n", 1)[0])
+        if m:
+            out[f"{m.group(1)},{m.group(2)}"] = re.findall(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+    return out
+
+
+def _register_kernel_figures(name, sass, build_log, width):
+    """ptxas's registers and spills of every register-route instantiation;
+    at the path's width, the DP's SASS instructions a cell (the engine
+    kernel's count less the loads-only variant's, over W * W cells: the
+    row-exit branches and the sentinel test included) and a check that no
+    shared or local memory instruction is left."""
+    ops = _sass_by_kernel(sass)
+    # the engine's flags are the ones instantiated at every width 1..32
+    flags = {k.split(",")[1] for k in ops}
+    engine_flags = [f for f in flags if all(f"{w},{f}" in ops for w in range(1, 33))]
+    check(len(engine_flags) == 1, f"{name}: engine instantiations {engine_flags}")
+    engine_flags = int(engine_flags[0])
+    engine = ops[f"{width},{engine_flags}"]
+    loads = ops[f"{width},{engine_flags & ~DP_FLAG}"]
+    memory = sorted({op for op in engine if op.split(".")[0] in ("LDS", "STS", "LDL", "STL")})
+    check(not memory, f"{name} W={width}: shared or local memory in the register kernel: {memory}")
+    def by_opcode(listing):
+        return collections.Counter(op.split(".")[0] for op in listing)
+
+    diff = by_opcode(engine)
+    diff.subtract(by_opcode(loads))
+    per_cell = (len(engine) - len(loads)) / width ** 2
+    ptxas = _ptxas_by_kernel(build_log)
+    path = ptxas.get(f"{width},{engine_flags}", {})
+    log(f"{name} SASS at W={width}: {len(engine)} instructions ({len(loads)} loads-only), "
+        f"{per_cell:.2f} a DP cell; the difference by opcode "
+        f"{dict(+diff)}; no LDS/STS/LDL/STL; ptxas {path}")
+    regs = {k: (v.get("registers"), v.get("spill_store_bytes")) for k, v in ptxas.items()}
+    return dict(width=width, sass_instructions=len(engine), loads_only_instructions=len(loads),
+                sass_per_cell=per_cell, sass_dp_by_opcode=dict(+diff),
+                ptxas_path=path, ptxas_registers_spills=regs)
 
 
 def _ptxas_by_kernel(text):
@@ -277,6 +341,72 @@ def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_
         check(torch.equal(ex_lvl, lvl) and torch.equal(ex_mss, want_mss), "exact_mss path differs")
         log(f"fused P={P} table={tuple(codes.shape)}: level_lcs bit-equal, "
             f"kernel mss epilogue (exact_mss=False) bit-equal to mss_scores: {epilogue_equal}")
+    _fused_edge_cases(torch, dev, rng, codes, lengths, betas)
+
+
+def _hold_fused(torch, what, args, route, window=None):
+    """The scorer (#1, or #3 with ``window``) against its plain version,
+    bit-equal, launched once on ``route``; returns its level_lcs."""
+    from repro_torch.kernels.lcs import fused
+
+    wrapper = fused.fused_gather_score if window is None else fused.fused_windowed_gather_score
+    plain = fused.fused_gather_score_plain if window is None else fused.fused_windowed_gather_score_plain
+    kw = {} if window is None else {"window": window}
+    before = wrapper.launches_by_route[route]
+    lvl, mss = wrapper(*args, **kw)
+    check(wrapper.launches_by_route[route] == before + 1, f"{what}: not launched on the {route} route")
+    want_lvl, want_mss = plain(*args, **kw)
+    check(torch.equal(lvl, want_lvl) and torch.equal(mss, want_mss), f"{what}: kernel != plain")
+    return lvl
+
+
+def _table40(torch, dev, rng, H, n=20_000):
+    """A code table of rows of 40 positions (the shared route's widths)."""
+    import numpy as np
+
+    lengths = torch.as_tensor(rng.integers(0, 41, size=n).astype(np.int32), device=dev)
+    codes = torch.as_tensor(rng.integers(0, 30, size=(n, H, 40)).astype(np.int32), device=dev)
+    return torch.where(torch.arange(40, device=dev) < lengths[:, None, None], codes, -1), lengths
+
+
+def _fused_edge_cases(torch, dev, rng, codes, lengths, betas, P=1_000_003):
+    """#1's identity pairs (with and without codes equal to the side
+    sentinels), a buffer whose tail past a ragged count is clamped to the
+    pair (0, 0), two distinct tables with iota indices, and both routes."""
+    import numpy as np
+
+    N, H, L = codes.shape
+    idx = torch.as_tensor(rng.integers(0, N, size=P).astype(np.int32), device=dev)
+    pos = torch.arange(L, device=dev)
+    valid = pos < lengths[:, None, None]
+    sentinels = torch.where(valid & (torch.rand(codes.shape, device=dev) < 0.25),
+                            -1 - (torch.rand(codes.shape, device=dev) < 0.5).int(), codes)
+    wl = lengths[idx].clamp(0, L)[:, None].expand(P, H)
+    for name, table in (("identity", codes), ("identity, sentinel-valued codes", sentinels)):
+        lvl = _hold_fused(torch, f"fused {name}", (table, lengths, table, lengths, idx, idx, betas),
+                          "registers")
+        check(torch.equal(lvl, wl), f"fused {name}: LCS != min(len, L)")
+    count = P - P // 3 - 17
+    left, right = (torch.as_tensor(rng.integers(0, N, size=P).astype(np.int32), device=dev) for _ in "ab")
+    left[count:] = 0
+    right[count:] = 0
+    for name, table in (("PAD tail", codes), ("PAD tail, sentinel-valued codes", sentinels)):
+        _hold_fused(torch, f"fused {name}", (table, lengths, table, lengths, left, right, betas),
+                    "registers")
+    iota = torch.arange(N, dtype=torch.int32, device=dev)[:P]
+    other = codes.roll(1, dims=0)
+    _hold_fused(torch, "fused two tables, iota", (codes, lengths, other, lengths.roll(1), iota, iota, betas),
+                "registers")
+    # the shared route: rows of 40 positions
+    c40, len40 = _table40(torch, dev, rng, H)
+    l40, r40 = (torch.as_tensor(rng.integers(0, c40.shape[0], size=100_003).astype(np.int32),
+                                device=dev) for _ in "ab")
+    l40[:1000] = r40[:1000]
+    l40[-5000:] = r40[-5000:] = 0
+    _hold_fused(torch, "fused L=40 (shared route)", (c40, len40, c40, len40, l40, r40, betas), "shared")
+    log(f"fused edge cases: identity pairs ({P}; LCS = min(len, L)), with codes equal to the side "
+        f"sentinels, a PAD tail from count {count} of {P}, two tables with iota indices, "
+        "and L = 40 on the shared route: bit-equal to the plain version")
 
 
 def phase_windowed_kernel(torch, dev, table_shape=(SUB_N, 3, 20), pairs=4_000_037):
@@ -314,6 +444,61 @@ def phase_windowed_kernel(torch, dev, table_shape=(SUB_N, 3, 20), pairs=4_000_03
                   f"windowed kernel != gather-windows reference at P={P}")
         log(f"fused_windowed P={P} table={tuple(codes.shape)} W={W}: level_lcs and the "
             "kernel's mss epilogue bit-equal to the plain version")
+    _windowed_edge_cases(torch, dev, rng, codes, lengths, betas)
+
+
+def _windowed_edge_cases(torch, dev, rng, codes, lengths, betas, P=1_000_003):
+    """#3's identical windows (with and without codes equal to the side
+    sentinels: with them the kernel scores the W-wide slices, as the
+    gather-windows reference does, and the plain version's whole masked
+    rows differ), a PAD tail, two tables with iota indices, and the shared
+    route."""
+    import numpy as np
+
+    from repro_torch.kernels.lcs import fused
+
+    N, H, L = codes.shape
+    W = SUB_WINDOW
+    coord = lambda hi: torch.as_tensor(rng.integers(0, hi, size=P).astype(np.int32), device=dev)  # noqa: E731
+    t, off = coord(N), coord(L)
+    off[:1000] = L - 1
+    wl = (lengths[t].clamp(max=L) - off).clamp(0, W)[:, None].expand(P, H)
+    lvl = _hold_fused(torch, "fused_windowed identity", (codes, lengths, codes, lengths, t, t, off, off, betas),
+                      "registers", window=W)
+    check(torch.equal(lvl, wl), "fused_windowed identity: LCS != window length")
+    valid = torch.arange(L, device=dev) < lengths[:, None, None]
+    sentinels = torch.where(valid & (torch.rand(codes.shape, device=dev) < 0.25),
+                            -1 - (torch.rand(codes.shape, device=dev) < 0.5).int(), codes)
+    ta, tb, oa, ob = coord(N), coord(N), coord(L), coord(L)
+    ta[:P // 10], oa[:P // 10] = tb[:P // 10], ob[:P // 10]
+    args = (sentinels, lengths, sentinels, lengths, ta, tb, oa, ob, betas)
+    got = fused.fused_windowed_gather_score(*args, window=W)
+    want = fused.fused_windowed_score_ref(*args, window=W)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "fused_windowed with sentinel-valued codes != the gather-windows reference")
+    same = slice(0, P // 10)
+    wl_same = (lengths[tb[same]].clamp(max=L) - ob[same]).clamp(0, W)[:, None].expand(-1, H)
+    check(torch.equal(got[0][same], wl_same),
+          "fused_windowed identity with sentinel-valued codes: LCS != window length")
+    count = P - P // 3 - 17
+    for x in (ta, tb, oa, ob):
+        x[count:] = 0
+    _hold_fused(torch, "fused_windowed PAD tail", (codes, lengths, codes, lengths, ta, tb, oa, ob, betas),
+                "registers", window=W)
+    iota = torch.arange(N, dtype=torch.int32, device=dev)
+    o = torch.full_like(iota, 3)
+    _hold_fused(torch, "fused_windowed two tables, iota",
+                (codes, lengths, codes.roll(1, dims=0), lengths.roll(1), iota, iota, o, o, betas),
+                "registers", window=W)
+    c40, len40 = _table40(torch, dev, rng, H)
+    t40 = [torch.as_tensor(rng.integers(0, hi, size=100_003).astype(np.int32), device=dev)
+           for hi in (c40.shape[0], c40.shape[0], 40, 40)]
+    t40[0][:1000], t40[2][:1000] = t40[1][:1000], t40[3][:1000]
+    _hold_fused(torch, "fused_windowed L=40 W=33 (shared route)", (c40, len40, c40, len40, *t40, betas),
+                "shared", window=33)
+    log(f"fused_windowed edge cases: identical windows ({P}; LCS = window length), codes equal to the "
+        f"side sentinels (== the gather-windows reference), a PAD tail from count {count} of {P}, two "
+        "tables with iota indices, and W = 33 on the shared route: bit-equal")
 
 
 def _engine(dev, forest, impl, backend="ssh", **cfg):
@@ -348,6 +533,8 @@ def _counted(fn):
     flash.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     flash.copies = 0
     wrappers["ssd_intra"].launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+    for name in ("fused_gather_score", "fused_windowed_gather_score"):
+        wrappers[name].launches_by_route = {"registers": 0, "shared": 0}
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -421,7 +608,10 @@ def phase_main(torch, dev, n=MAIN_N, slice_pairs=1 << 20):
     res, counts = _run_counted(engine, batch)
     wall = time.perf_counter() - t0
     expect_launched(counts, ["fused_gather_score"])
+    routes = dict(fused.fused_gather_score.launches_by_route)
+    check(routes == {"registers": 1, "shared": 0}, f"main: #1 launched on routes {routes}")
     _stats_line(f"main N={n}", res, counts)
+    log(f"main: fused_gather_score launches_by_route {routes}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     log(f"main: run wall {wall:.3f}s, peak device memory {peak:.2f} GiB")
 
@@ -447,9 +637,57 @@ def phase_main(torch, dev, n=MAIN_N, slice_pairs=1 << 20):
     )
     check(torch.equal(sc.level_lcs[s], want_lvl), "main: level_lcs slice != plain")
     check(torch.equal(sc.mss[s], want_mss), "main: mss slice != plain")
-    log(f"main: slice of {s.stop} scored pairs bit-equal to the plain version")
+    # a slice across the count, into the PAD tail clamped to the pair (0, 0)
+    count = int(sc.count)
+    t = slice(max(0, count - slice_pairs // 2), min(P, count + slice_pairs // 2))
+    want_lvl, want_mss = fused.fused_gather_score_plain(
+        enc.codes, enc.lengths, enc.codes, enc.lengths, li[t], ri[t], engine.betas
+    )
+    check(torch.equal(sc.level_lcs[t], want_lvl) and torch.equal(sc.mss[t], want_mss),
+          "main: slice across the count != plain")
+    log(f"main: slices [0, {s.stop}) and [{t.start}, {t.stop}) (across the count {count}, into the "
+        "PAD tail) of the scored buffer bit-equal to the plain version")
+    split = _score_split(torch, sc, enc, engine.betas)
     main_inputs = (enc.codes, enc.lengths, li, ri, engine.betas)
-    return res, counts, main_inputs
+    return res, counts, main_inputs, dict(launches_by_route=routes, score_stage_ms=split)
+
+
+def _score_split(torch, sc, enc, betas):
+    """The main path's score stage on the engine's own buffer, part by part:
+    the PAD clamp, the kernel's wrapper (checks and launch), the
+    ``exact_mss`` recompute (CUDA events, median of 3), and the host's
+    ``mss > rho`` mask and similar-pair set, which follow the timed phase
+    (host clock, copies from the card included)."""
+    import numpy as np
+
+    from repro_torch.core.similarity import mss_scores
+    from repro_torch.core.types import PAD_ID
+    from repro_torch.kernels.lcs import fused
+
+    state = {}
+
+    def clamp():
+        state["li"] = torch.where(sc.left == PAD_ID, 0, sc.left)
+        state["ri"] = torch.where(sc.right == PAD_ID, 0, sc.right)
+
+    def kernel():
+        state["lvl"], _ = fused.fused_gather_score(enc.codes, enc.lengths, enc.codes, enc.lengths,
+                                                   state["li"], state["ri"], betas)
+
+    def exact():
+        state["mss"] = mss_scores(state["lvl"], betas)
+
+    split = {name: _time_ms(torch, fn, reps=3) for name, fn in
+             (("clamp", clamp), ("kernel_wrapper", kernel), ("exact_mss", exact))}
+    check(torch.equal(state["mss"], sc.mss), "score split: recomputed mss != the engine's")
+    t0 = time.perf_counter()
+    left_np, right_np = sc.left.cpu().numpy(), sc.right.cpu().numpy()
+    mask = (left_np != PAD_ID) & (sc.mss.cpu().numpy() > np.float32(RHO))
+    pairs = {(int(a), int(b)) for a, b in zip(left_np[mask].tolist(), right_np[mask].tolist())}
+    split["mask_and_pair_set_host"] = (time.perf_counter() - t0) * 1e3
+    log("main score stage on the engine's buffer (ms): " +
+        ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" ({len(pairs)} similar pairs)")
+    return split
 
 
 def phase_kernel_path(torch, dev, n=KERNEL_N):
@@ -536,7 +774,10 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
     res, counts = _run_counted(engine, batch)
     wall = time.perf_counter() - t0
     expect_launched(counts, ["fused_windowed_gather_score"])
+    routes = dict(fused.fused_windowed_gather_score.launches_by_route)
+    check(routes == {"registers": 1, "shared": 0}, f"subtraj: #3 launched on routes {routes}")
     _sub_stats_line(f"subtraj N={n} W={SUB_WINDOW}", res, counts)
+    log(f"subtraj: fused_windowed_gather_score launches_by_route {routes}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     log(f"subtraj: run wall {wall:.3f}s, peak device memory {peak:.2f} GiB")
 
@@ -573,6 +814,17 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
     want_lvl, want_mss = fused.fused_windowed_gather_score_plain(*part, window=SUB_WINDOW)
     check(torch.equal(lvl, want_lvl) and torch.equal(mss, want_mss),
           "subtraj: window slice kernel != plain")
+    # a slice across the count, into the PAD tail (window 0 of row 0 on both sides)
+    count = int(cand.count)
+    t = slice(max(0, count - slice_pairs // 2), min(ta.shape[0], count + slice_pairs // 2))
+    tail = _pairs_slice(coords, t)
+    got = fused.fused_windowed_gather_score(*tail, window=SUB_WINDOW)
+    want = fused.fused_windowed_gather_score_plain(*tail, window=SUB_WINDOW)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "subtraj: window slice across the count kernel != plain")
+    log(f"subtraj: window slice [{t.start}, {t.stop}) across the count {count}, into the PAD "
+        "tail, bit-equal to the plain version")
+    del got, want, tail
 
     def pair_keys(wl, wr):  # (traj_lo * n + traj_hi) of cross-trajectory window pairs
         valid = wl != PAD_ID
@@ -606,7 +858,7 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
         f"its fold equals the engine's row for {whole.size} of {fkey.size} trajectory "
         f"pairs (all their window pairs in the slice), the rest under the engine's max")
     sub_types = (enc.codes[:, 0, :], enc.lengths)
-    return counts, coords, sub_types
+    return counts, coords, sub_types, routes
 
 
 def phase_subtraj_kernel_path(torch, dev, n=SUB_KERNEL_N):
@@ -674,7 +926,36 @@ def _bound_ms(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts):
+def _fused_launch_timing(torch, operands, window=None):
+    """The fused scorer's kernel alone (#1, or #3 with ``window``): the
+    register route as the engine launches it and the shared route forced at
+    the same width, in turns (ten launches an event pair, so no wrapper
+    work counts), and the parent design (the shared route with the DP on
+    every pair)."""
+    from repro_torch.kernels.lcs import fused
+
+    P, H = operands[4].shape[0], operands[0].shape[1]
+    lvl = torch.empty((P, H), dtype=torch.int32, device=operands[0].device)
+    mss = torch.empty((P,), dtype=torch.float32, device=operands[0].device)
+
+    def launch(variant):
+        return lambda: fused.launch_variant(variant, operands, lvl, mss, window=window)
+
+    turns = [_time_ms(torch, launch(v), batch=10) for v in ("registers", "shared", "shared", "registers")]
+    ms, shared_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return dict(launch_ms=ms, shared_route_ms=shared_ms, shared_over_registers=shared_ms / ms,
+                parent_design_ms=_time_ms(torch, launch("shared_no_identity"), batch=3),
+                launch_turns_ms=turns)
+
+
+def _needed_cells(torch, H, wla, wlb, identical):
+    """DP cells these inputs need: H * wla * wlb over the pairs that are not
+    one row (window) of one table."""
+    return H * int((wla.long() * wlb.long() * (~identical)).sum())
+
+
+def phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands, kernel_counts,
+                 figures):
     from repro_torch.kernels.lcs import fused, kernel
 
     entries = []
@@ -701,18 +982,28 @@ def phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts
     # both sides), each output written once; one op per DP cell
     nbytes = (codes.numel() + lengths.numel() + 2 * P + H) * 4 + P * (H + 1) * 4
     bound, by = _bound_ms(nbytes, P * H * L * L)
+    # the register route runs only the DP cells these inputs need
+    cells = _needed_cells(torch, H, lengths[li].clamp(0, L), lengths[ri].clamp(0, L), li == ri)
+    needed, needed_by = _bound_ms(nbytes, cells)
+    parts = _fused_launch_timing(torch, (codes, lengths, codes, lengths, li, ri, betas))
     entries.append(dict(
         name="fused_gather_score", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_score.cu",
         replaces="src/repro/kernels/lcs/fused.py:202",
         launches=main_counts["fused_gather_score"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        needed_bound_ms=needed, needed_bound_by=needed_by, needed_cells=cells, **parts,
+        **main_figures, register_kernel=figures["fused_score"],
         path=f"main: SSH engine N={MAIN_N} lcs_impl=fused",
         shape=f"table {list(codes.shape)} pairs {P}",
     ))
-    log(f"timing fused_gather_score: {ms:.3f} ms (plain {plain_ms:.3f} ms in {chunk}-pair "
-        f"chunks, bound {bound:.3f} ms by {by}); library_ms: no single PyTorch call "
-        "computes an LCS")
+    log(f"timing fused_gather_score: {ms:.3f} ms with its wrapper, one launch an event pair "
+        f"(the launch alone {parts['launch_ms']:.3f} ms, ten an event pair; the shared route at "
+        f"L = {L} {parts['shared_route_ms']:.3f} ms = {parts['shared_over_registers']:.2f}x; the "
+        f"parent design {parts['parent_design_ms']:.3f} ms; plain {plain_ms:.3f} ms in {chunk}-pair "
+        f"chunks); bound {bound:.3f} ms by {by}, needed bound {needed:.3f} ms by {needed_by} "
+        f"({cells:.4g} cells); routes {main_figures['launches_by_route']}; library_ms: no single "
+        "PyTorch call computes an LCS")
 
     a, b = kernel_operands
     B, L = a.shape
@@ -735,7 +1026,8 @@ def phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts
     return entries
 
 
-def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, main_types, shingle_counts):
+def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, sub_routes, main_types,
+                                      shingle_counts, figures):
     from repro_torch.kernels.lcs import fused
     from repro_torch.kernels.shingle import kernel
 
@@ -763,18 +1055,31 @@ def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, main_types,
     # coordinate vectors), each output written once; one op per DP cell
     nbytes = (codes.numel() + lengths.numel() + 4 * P + H) * 4 + P * (H + 1) * 4
     bound, by = _bound_ms(nbytes, P * H * W * W)
+    L = codes.shape[2]
+    wla = (lengths[ta].clamp(max=L) - oa).clamp(0, W)
+    wlb = (lengths[tb].clamp(max=L) - ob).clamp(0, W)
+    cells = _needed_cells(torch, H, wla, wlb, (ta == tb) & (oa == ob))
+    del wla, wlb
+    needed, needed_by = _bound_ms(nbytes, cells)
+    parts = _fused_launch_timing(torch, tuple(sub_coords), window=W)
     entries.append(dict(
         name="fused_windowed_gather_score", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_windowed_score.cu",
         replaces="src/repro/kernels/lcs/fused.py:264",
         launches=sub_counts["fused_windowed_gather_score"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        needed_bound_ms=needed, needed_bound_by=needed_by, needed_cells=cells, **parts,
+        launches_by_route=sub_routes, register_kernel=figures["fused_windowed_score"],
         path=f"subtraj: SSH engine N={SUB_N} subtraj_window={W} lcs_impl=fused",
         shape=f"table {list(codes.shape)} window pairs {P}",
     ))
-    log(f"timing fused_windowed_gather_score: {ms:.3f} ms (plain {plain_ms:.3f} ms in "
-        f"{chunk}-pair chunks, bound {bound:.3f} ms by {by}); library_ms: no single "
-        "PyTorch call computes an LCS")
+    log(f"timing fused_windowed_gather_score: {ms:.3f} ms with its wrapper, one launch an event "
+        f"pair (the launch alone {parts['launch_ms']:.3f} ms, ten an event pair; the shared route "
+        f"at W = {W} {parts['shared_route_ms']:.3f} ms = {parts['shared_over_registers']:.2f}x; the "
+        f"parent design {parts['parent_design_ms']:.3f} ms; plain {plain_ms:.3f} ms in {chunk}-pair "
+        f"chunks); bound {bound:.3f} ms by {by}, needed bound {needed:.3f} ms by {needed_by} "
+        f"({cells:.4g} cells); routes {sub_routes}; library_ms: no single PyTorch call computes "
+        "an LCS")
 
     types, lengths = main_types
     N, L = types.shape
@@ -1687,18 +1992,19 @@ def main() -> int:
     phase_windowed_kernel(torch, dev)
     phase_fig1(dev)
     phase_small(torch, dev)
-    _, main_counts, main_inputs = phase_main(torch, dev)
+    _, main_counts, main_inputs, main_figures = phase_main(torch, dev)
     kernel_counts, kernel_operands = phase_kernel_path(torch, dev)
-    entries = phase_timing(torch, main_inputs, main_counts, kernel_operands, kernel_counts)
+    entries = phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands,
+                           kernel_counts, figures)
     codes, lengths = main_inputs[:2]
     main_types = (codes[:, 0, :].contiguous(), lengths)
     del main_inputs, kernel_operands, codes
     phase_subtraj_small(torch, dev)
-    sub_counts, sub_coords, sub_types = phase_subtraj(torch, dev)
+    sub_counts, sub_coords, sub_types, sub_routes = phase_subtraj(torch, dev)
     phase_subtraj_kernel_path(torch, dev)
     shingle_counts = phase_shingle(torch, dev, main_types, sub_types)
     entries += phase_timing_windowed_and_shingle(
-        torch, sub_coords, sub_counts, main_types, shingle_counts
+        torch, sub_coords, sub_counts, sub_routes, main_types, shingle_counts, figures
     )
     del sub_coords
     phase_minhash_kernel(torch, dev, main_types, sub_types)

@@ -12,7 +12,11 @@ all H levels, and emits ``level_lcs [P, H]`` and ``mss [P]`` in one pass.
 * :func:`fused_gather_score` — the raw call: the Hopper kernel
   ``kernels/csrc/fused_score.cu`` on a CUDA tensor (its header notes the
   bound and the design), the plain version on a CPU tensor.  Every launch
-  adds one to ``fused_gather_score.launches``.
+  adds one to ``fused_gather_score.launches`` and to its route's count in
+  ``launches_by_route``: :func:`route` sends DP widths up to 32 to the
+  register kernels (the width a template argument) and wider ones to the
+  shared-memory kernel, and the launcher runs the route it is given.  :func:`launch_variant` runs the parts of the
+  design one by one, for timing only.
 * :func:`fused_gather_score_plain` — the plain PyTorch version: the TPU
   kernel's ``_masked_rows_lcs`` rolling-window wavefront as written,
   batched over pairs, with the kernel's FMA-chain epilogue.
@@ -32,6 +36,7 @@ shared table with pair indices and two operand stacks with iota indices.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,8 +58,38 @@ FUSED_IMPL_MODES = {
 
 _DISPATCH_MODES = ("auto", "pallas", "interpret", "ref")
 
-# threads per block of the fused kernel (capped by shared memory in threads_for)
-_FUSED_THREADS = 128
+# widest DP the register route takes; the launchers have a register kernel
+# for every width up to csrc/pair_dp.cuh kMaxRegisterWidth and refuse wider
+MAX_REGISTER_WIDTH = 32
+# the launchers' route codes (csrc/pair_dp.cuh kRouteRegisters, kRouteShared)
+ROUTES = ("registers", "shared")
+# threads per block (on an H100 the register kernels ran alike at 64 and
+# 128, slower at 256 and 512); the shared route's block is also capped by
+# its [2, W, threads] int32 rows in threads_for
+_THREADS = 128
+
+# the variant launchers' codes (csrc/fused_score.cu); only the smoke run and
+# tools/fused_score_breakdown.py call them, to time the design's parts
+VARIANTS = {
+    "shared_no_identity": 0,  # the parent design: shared route, DP on every pair
+    # the register kernel with one part changed, at the path's width only
+    # (10, and 8 windowed)
+    "no_identity": 1,
+    "stop_at_wla": 2,
+    "loads_only": 3,          # a wrong LCS on purpose
+}
+
+
+def route(W: int) -> str:
+    """The kernel route of a DP width: ``"registers"`` (the width is a
+    template argument, rows and DP in registers) up to 32, ``"shared"``
+    (the runtime-width body, rows and DP in shared memory) above."""
+    return "registers" if W <= MAX_REGISTER_WIDTH else "shared"
+
+
+def block_threads(W: int) -> int:
+    """Threads per block the wrappers launch at DP width ``W``."""
+    return _THREADS if route(W) == "registers" else threads_for(W, _THREADS)
 
 
 def _masked_rows_lcs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,8 +122,8 @@ def _masked_rows_lcs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d1[..., L]  # dp[L, L] per level
 
 
-def check_tables(table_a, len_a, table_b, len_b, left, right, betas) -> tuple[int, int, int]:
-    """Validate the fused operands; returns (P, H, L)."""
+def _check_static(table_a, len_a, table_b, len_b, left, right, betas) -> tuple[int, int, int]:
+    """The fused operands' types, devices and shapes; returns (P, H, L)."""
     tensors = dict(table_a=table_a, len_a=len_a, table_b=table_b, len_b=len_b,
                    left=left, right=right)
     for name, t in tensors.items():
@@ -111,11 +146,34 @@ def check_tables(table_a, len_a, table_b, len_b, left, right, betas) -> tuple[in
     if L < 1:
         raise ValueError("code rows must hold at least one position")
     check_lcs_len(L)
-    # the kernel reads rows at these indices unchecked: an index out of
-    # range (an unclamped PAD_ID) would read outside the tables
-    for name, idx, n in (("left", left, table_a.shape[0]), ("right", right, table_b.shape[0])):
-        if P and (int(idx.min()) < 0 or int(idx.max()) >= n):
-            raise IndexError(f"{name} holds indices outside [0, {n}); clamp PAD_ID slots first")
+    return P, H, L
+
+
+def _check_ranges(checks) -> None:
+    """Hold each ``(vector, hi, message)`` of ``checks`` to ``[0, hi)``, or
+    raise ``IndexError(message)``: one ``aminmax`` a vector and one host sync
+    for all of them.  The kernels read rows at these indices and offsets
+    unchecked: a value out of range (an unclamped PAD_ID) would read outside
+    the tables."""
+    checks = [c for c in checks if c[0].numel()]
+    if not checks:
+        return
+    ranges = torch.stack([torch.stack(torch.aminmax(v)) for v, _, _ in checks]).tolist()
+    for (lo, top), (_, hi, message) in zip(ranges, checks):
+        if lo < 0 or top >= hi:
+            raise IndexError(message)
+
+
+def _index_checks(left, right, table_a, table_b):
+    return [(idx, n, f"{name} holds indices outside [0, {n}); clamp PAD_ID slots first")
+            for name, idx, n in (("left", left, table_a.shape[0]),
+                                 ("right", right, table_b.shape[0]))]
+
+
+def check_tables(table_a, len_a, table_b, len_b, left, right, betas) -> tuple[int, int, int]:
+    """Validate the fused operands; returns (P, H, L)."""
+    P, H, L = _check_static(table_a, len_a, table_b, len_b, left, right, betas)
+    _check_ranges(_index_checks(left, right, table_a, table_b))
     return P, H, L
 
 
@@ -131,14 +189,32 @@ def fused_gather_score_plain(
     return lvl, mss_scores(lvl, betas)
 
 
-def _launcher():
-    fn = _build.load("fused_score").fused_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+# ctypes prototypes of the C launchers (csrc/fused_score.cu,
+# csrc/fused_windowed_score.cu): the engine's ends in ``int route``, a
+# variant launcher's in ``int variant``
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 9 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+]
+WINDOWED_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 11 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int,
+]
+
+
+def _bind(source: str, symbol: str, argtypes):
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+# (source, symbol, prototype) of the engine's launchers: plain, windowed
+_LAUNCHERS = (("fused_score", "fused_score_launch", LAUNCH_ARGTYPES),
+              ("fused_windowed_score", "fused_windowed_score_launch", WINDOWED_LAUNCH_ARGTYPES))
+
+
+def _launcher():
+    return _bind(*_LAUNCHERS[0])
 
 
 def fused_gather_score(
@@ -155,9 +231,9 @@ def fused_gather_score(
     table_a [Na, H, L] int32, len_a [Na] int32 (idem _b), left/right [P]
     int32 indices into the respective tables (pre-clamped: no PAD_ID), betas
     [H] float32 -> (level_lcs [P, H] int32, mss [P] float32), ``mss`` from
-    the kernel's own FMA-chain epilogue.  On a CUDA tensor: the kernel, at
-    most ``_FUSED_THREADS`` threads per block (raises if the launch fails).
-    On a CPU tensor: :func:`fused_gather_score_plain`.
+    the kernel's own FMA-chain epilogue.  On a CUDA tensor: the kernel of
+    ``route(L)`` (raises if the launch fails), counted in ``launches`` and
+    ``launches_by_route``.  On a CPU tensor: :func:`fused_gather_score_plain`.
     """
     P, H, L = check_tables(table_a, len_a, table_b, len_b, left, right, betas)
     if not on_cuda(left):
@@ -167,17 +243,20 @@ def fused_gather_score(
     mss = torch.empty((P,), dtype=torch.float32, device=left.device)
     if P == 0:
         return lvl, mss
+    path = route(L)
     err = _launcher()(
         *(t.data_ptr() for t in ops), lvl.data_ptr(), mss.data_ptr(),
-        P, H, L, threads_for(L, _FUSED_THREADS),
-        torch.cuda.current_stream(left.device).cuda_stream,
+        P, H, L, block_threads(L), torch.cuda.current_stream(left.device).cuda_stream,
+        ROUTES.index(path),
     )
     _build.check(err, "fused_gather_score")
     fused_gather_score.launches += 1
+    fused_gather_score.launches_by_route[path] += 1
     return lvl, mss
 
 
 fused_gather_score.launches = 0
+fused_gather_score.launches_by_route = {"registers": 0, "shared": 0}
 
 
 def fused_score_ref(
@@ -241,9 +320,10 @@ def fused_score(
 def check_windowed(table_a, len_a, table_b, len_b, left, right, off_a, off_b,
                    betas, window) -> tuple[int, int, int]:
     """Validate the windowed operands; returns (P, H, L)."""
-    P, H, L = check_tables(table_a, len_a, table_b, len_b, left, right, betas)
+    P, H, L = _check_static(table_a, len_a, table_b, len_b, left, right, betas)
     if window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    checks = _index_checks(left, right, table_a, table_b)
     for name, off in (("off_a", off_a), ("off_b", off_b)):
         if off.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {off.dtype}")
@@ -251,8 +331,8 @@ def check_windowed(table_a, len_a, table_b, len_b, left, right, off_a, off_b,
             raise ValueError(f"{name} must be [P] on the pairs' device")
         # the kernel reads table[t, h, off + i]: an offset outside [0, L)
         # would read outside the row
-        if P and (int(off.min()) < 0 or int(off.max()) >= L):
-            raise IndexError(f"{name} holds offsets outside [0, {L})")
+        checks.append((off, L, f"{name} holds offsets outside [0, {L})"))
+    _check_ranges(checks)
     return P, H, L
 
 
@@ -262,7 +342,14 @@ def fused_windowed_gather_score_plain(
     """The plain PyTorch version of the windowed kernel, same contract: the
     TPU kernel's scheme as written — each pair's full ``[H, L]`` rows, every
     position outside ``[off, off + clip(len - off, 0, W))`` masked to the
-    side sentinel, the rolling-window wavefront over the masked rows."""
+    side sentinel, the rolling-window wavefront over the masked rows.
+
+    It is the kernel's yardstick for codes that are not the side sentinels
+    (-1, -2), which the encoder never emits.  A valid code equal to one can
+    match the other side's sentinels, and the whole masked rows hold more of
+    them than the W-wide slices that the kernel and the gather-windows
+    reference (:func:`fused_windowed_score_ref`) score, so there the two
+    differ."""
     L = table_a.shape[-1]
     W = min(window, L)
     pos = torch.arange(L, dtype=torch.int32, device=table_a.device)
@@ -279,13 +366,7 @@ def fused_windowed_gather_score_plain(
 
 
 def _windowed_launcher():
-    fn = _build.load("fused_windowed_score").fused_windowed_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind(*_LAUNCHERS[1])
 
 
 def fused_windowed_gather_score(
@@ -307,8 +388,9 @@ def fused_windowed_gather_score(
     TRAJECTORIES and off_a/off_b [P] int32 (in ``[0, L)``) are the window
     start offsets: the scored operand is the [H, W] slice
     ``rows[:, off : off + clip(len - off, 0, W)]``, W = min(window, L).
-    On a CUDA tensor: ``fused_windowed_score.cu`` (raises if the launch
-    fails).  On a CPU tensor: :func:`fused_windowed_gather_score_plain`.
+    On a CUDA tensor: ``fused_windowed_score.cu`` on ``route(W)`` (raises if
+    the launch fails), counted in ``launches`` and ``launches_by_route``.
+    On a CPU tensor: :func:`fused_windowed_gather_score_plain`.
     """
     P, H, L = check_windowed(table_a, len_a, table_b, len_b, left, right,
                              off_a, off_b, betas, window)
@@ -324,17 +406,55 @@ def fused_windowed_gather_score(
     mss = torch.empty((P,), dtype=torch.float32, device=left.device)
     if P == 0:
         return lvl, mss
+    path = route(W)
     err = _windowed_launcher()(
         *(t.data_ptr() for t in ops), lvl.data_ptr(), mss.data_ptr(),
-        P, H, L, W, threads_for(W, _FUSED_THREADS),
-        torch.cuda.current_stream(left.device).cuda_stream,
+        P, H, L, W, block_threads(W), torch.cuda.current_stream(left.device).cuda_stream,
+        ROUTES.index(path),
     )
     _build.check(err, "fused_windowed_gather_score")
     fused_windowed_gather_score.launches += 1
+    fused_windowed_gather_score.launches_by_route[path] += 1
     return lvl, mss
 
 
 fused_windowed_gather_score.launches = 0
+fused_windowed_gather_score.launches_by_route = {"registers": 0, "shared": 0}
+
+
+def launch_variant(variant: str, operands, lvl, mss, *, window=None, threads=None) -> None:
+    """Run one of :data:`ROUTES` (at this width, whatever :func:`route`
+    would pick) or :data:`VARIANTS` of the scorer on CUDA operands, unchecked
+    and uncounted, into the preallocated ``lvl`` [P, H] and ``mss`` [P].
+
+    ``operands`` are contiguous CUDA tensors in :func:`fused_gather_score`'s
+    order, or :func:`fused_windowed_gather_score`'s (with its four [P]
+    coordinate vectors) when ``window`` is given.  ``threads`` defaults to
+    the wrappers' block size at the variant's route.  Raises if the variant
+    has no kernel at this width.  Not on any engine path: for timing.
+    """
+    L = operands[0].shape[2]
+    W = L if window is None else min(window, L)
+    if threads is None:
+        threads = threads_for(W, _THREADS) if variant.startswith("shared") else _THREADS
+    P, H = lvl.shape
+    dims = (L,) if window is None else (L, W)
+    if variant in ROUTES:
+        launcher, code = _bind(*_LAUNCHERS[window is not None]), ROUTES.index(variant)
+    else:
+        launcher, code = _variant_launcher(window is not None), VARIANTS[variant]
+    err = launcher(
+        *(t.data_ptr() for t in operands), lvl.data_ptr(), mss.data_ptr(), P, H, *dims,
+        threads, torch.cuda.current_stream(lvl.device).cuda_stream, code)
+    _build.check(err, f"fused scorer variant {variant}")
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_launcher(windowed: bool):
+    if windowed:
+        return _bind("fused_windowed_score", "fused_windowed_score_variant_launch",
+                     WINDOWED_LAUNCH_ARGTYPES)
+    return _bind("fused_score", "fused_score_variant_launch", LAUNCH_ARGTYPES)
 
 
 def fused_windowed_score_ref(

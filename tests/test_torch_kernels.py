@@ -271,6 +271,21 @@ def test_fused_wrappers_reject_bad_operands():
     pad = torch.full_like(left, 2**31 - 1)
     with pytest.raises(IndexError, match="clamp PAD_ID"):
         tfused.fused_gather_score(codes, lengths, codes, lengths, pad, right, betas)
+    negative = left.clone()
+    negative[1] = -1
+    with pytest.raises(IndexError, match="left holds indices outside"):
+        tfused.fused_gather_score(codes, lengths, codes, lengths, negative, right, betas)
+    beyond = right.clone()
+    beyond[-1] = codes.shape[0]
+    with pytest.raises(IndexError, match="right holds indices outside"):
+        tfused.fused_gather_score(codes, lengths, codes, lengths, left, beyond, betas)
+    L = codes.shape[2]
+    off = torch.zeros_like(left)
+    off_L = off.clone()
+    off_L[2] = L
+    with pytest.raises(IndexError, match=rf"off_b holds offsets outside \[0, {L}\)"):
+        tfused.fused_windowed_gather_score(codes, lengths, codes, lengths, left, right,
+                                           off, off_L, betas, window=4)
     assert tfused.FUSED_IMPL_MODES == jfused.FUSED_IMPL_MODES
 
 
