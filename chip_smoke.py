@@ -11,11 +11,15 @@ phases, and exits non-zero if any phase fails:
 2. build   — compiles every kernel source with nvcc for sm_90a, in parallel;
    logs each source's build seconds and ptxas report, and requires HGMMA
    (wgmma) instructions in the SASS of both tensor-core libraries (flash
-   attention and the SSD intra-chunk step), and no shared or local memory
+   attention and the SSD intra-chunk step), no shared or local memory
    instruction in the fused scorers' register kernels at the paths' widths
-   (whose DP instructions a cell it counts).
+   and no local memory (spill) instruction in the batched LCS kernel's
+   register kernels at 10 and 8 (whose DP instructions a cell it counts for
+   all three).
 3. kernels — each Hopper kernel against its plain PyTorch version on the
-   card, bit-equal, at edge shapes and at the main path's shapes; the fused
+   card, bit-equal, at edge shapes and at the main path's shapes (the batched
+   LCS kernel at widths either side of its routes, ragged and unaligned
+   batches, and its route counts); the fused
    scorers also on identical pairs (with and without codes equal to the
    side sentinels), a PAD tail, two tables with iota indices and the
    shared-memory route.
@@ -29,21 +33,28 @@ phases, and exits non-zero if any phase fails:
    the score stage is split into the PAD clamp, the kernel, the
    ``exact_mss`` recompute and the host's mask and pair set.
 7. kernel  — 200,000 trajectories with ``lcs_impl="kernel"`` and "fused":
-   equal similar pairs and communities.
+   equal similar pairs and communities; the LCS kernel on its register
+   route.
 8. subtraj — the subtrajectory mode (``subtraj_window=8``) on fig13's
    forest with trajectories of 10-20 places: 2,000 trajectories (W = 8 and
    W >= L) against the plain "wavefront" engine on the card; 100,000
    trajectories with ``lcs_impl="fused"`` (1M-pair slices of the window
    buffer, at its head and across its count, re-scored by the plain
-   version); 20,000 with "kernel" against "fused".
+   version); 20,000 with "kernel" against "fused" (the LCS kernel on its
+   register route at W = 8).
 9. shingle — the public ``shingle_keys`` op (which neither engine calls) on
    the main world's type codes, counted, and the kernel against its plain
-   version there and on the subtrajectory world's window view.
+   version there, on the subtrajectory world's window view and at edge
+   shapes (rows wider than 32, orders 1-9, a wrapping base, s_pad not a
+   multiple of 4 and of 256).
 10. timing — each kernel and its plain version on its path's inputs (CUDA
    events), beside the least time the card could take; the fused scorers
    also by the launch alone (ten an event pair), against the shared-memory
    route and the parent design in the same run, and beside the bound of
-   the DP cells these inputs need.
+   the DP cells these inputs need; the batched LCS kernel by the launch
+   alone on both kernel paths' operands against its shared route (the
+   parent design) and its loads alone; the shingle kernel by the launch
+   alone against the parent design and its loads and stores alone.
 11. minhash kernel — the MinHash kernel against its plain version, bit-equal,
    at edge shapes, on the main world's type codes and on the subtrajectory
    world's window view.
@@ -218,6 +229,20 @@ def phase_build():
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
         figures[name] = _register_kernel_figures(name, sass, logs.get(name, ""), width)
+    # the batched LCS kernel stages its tiles through shared memory: only
+    # local memory (spills) is refused there
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("lcs"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    figures["lcs"] = {f"W{width}": _register_kernel_figures("lcs", sass, logs.get("lcs", ""), width,
+                                                             refused=("LDL", "STL"))
+                      for width in (10, SUB_WINDOW)}
+    # the shingle kernel at the timed order (k = 3, shuffle route): no spills
+    shingle = _ptxas_by_kernel(logs.get("shingle", ""))
+    path = shingle.get("3,0,0", {})
+    check(path.get("spill_store_bytes", 0) == 0, f"shingle k=3: spills {path}")
+    log(f"shingle ptxas at k=3, L <= 32: {path}")
+    figures["shingle"] = dict(ptxas_path=path, ptxas_registers_spills={
+        key: (v.get("registers"), v.get("spill_store_bytes")) for key, v in shingle.items()})
     return figures
 
 
@@ -236,12 +261,12 @@ def _sass_by_kernel(sass):
     return out
 
 
-def _register_kernel_figures(name, sass, build_log, width):
+def _register_kernel_figures(name, sass, build_log, width, refused=("LDS", "STS", "LDL", "STL")):
     """ptxas's registers and spills of every register-route instantiation;
     at the path's width, the DP's SASS instructions a cell (the engine
     kernel's count less the loads-only variant's, over W * W cells: the
     row-exit branches and the sentinel test included) and a check that no
-    shared or local memory instruction is left."""
+    ``refused`` memory instruction (by default shared or local) is left."""
     ops = _sass_by_kernel(sass)
     # the engine's flags are the ones instantiated at every width 1..32
     flags = {k.split(",")[1] for k in ops}
@@ -250,8 +275,8 @@ def _register_kernel_figures(name, sass, build_log, width):
     engine_flags = int(engine_flags[0])
     engine = ops[f"{width},{engine_flags}"]
     loads = ops[f"{width},{engine_flags & ~DP_FLAG}"]
-    memory = sorted({op for op in engine if op.split(".")[0] in ("LDS", "STS", "LDL", "STL")})
-    check(not memory, f"{name} W={width}: shared or local memory in the register kernel: {memory}")
+    memory = sorted({op for op in engine if op.split(".")[0] in refused})
+    check(not memory, f"{name} W={width}: {'/'.join(refused)} in the register kernel: {memory}")
     def by_opcode(listing):
         return collections.Counter(op.split(".")[0] for op in listing)
 
@@ -262,7 +287,7 @@ def _register_kernel_figures(name, sass, build_log, width):
     path = ptxas.get(f"{width},{engine_flags}", {})
     log(f"{name} SASS at W={width}: {len(engine)} instructions ({len(loads)} loads-only), "
         f"{per_cell:.2f} a DP cell; the difference by opcode "
-        f"{dict(+diff)}; no LDS/STS/LDL/STL; ptxas {path}")
+        f"{dict(+diff)}; no {'/'.join(refused)}; ptxas {path}")
     regs = {k: (v.get("registers"), v.get("spill_store_bytes")) for k, v in ptxas.items()}
     return dict(width=width, sass_instructions=len(engine), loads_only_instructions=len(loads),
                 sass_per_cell=per_cell, sass_dp_by_opcode=dict(+diff),
@@ -303,6 +328,7 @@ def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_
         return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
 
     same = torch.full((4096, 10), 7, dtype=torch.int32, device=dev)
+    unaligned = rows(100_004, 10)
     cases = {
         "odd_batch_B12345_L10": rows(12_345, 10),
         "L1": rows(5_001, 1),
@@ -310,14 +336,26 @@ def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_
         "L126": rows(20_011, 126, alphabet=3),
         "identical": (same, same),
         f"random_B{big_b}_L10": rows(big_b, 10),
+        # either side of the routes, ragged tiles of the register route
+        **{f"L{L}_B{B}": rows(B, L) for L in (1, 8, 32, 33) for B in (1, 127, 129)},
+        # rows at a 40-byte offset: the register route's scalar staging
+        "unaligned_L10": (unaligned[0][1:], unaligned[1][1:]),
+        # valid codes -2 in a and -1 in b, equal to the other side's pads
+        "cross_sentinels_L10": tuple(torch.where(x == 0, code, x)
+                                     for x, code in zip(rows(10_007, 10), (-2, -1))),
     }
     for name, (a, b) in cases.items():
+        before = dict(kernel.lcs_kernel.launches_by_route)
         got = ops.lcs(a, b, mode="pallas")
         want = kernel.lcs_plain(a, b)
         check(torch.equal(got, want), f"lcs kernel != plain on {name}")
-        if a.shape[0] * a.shape[1] ** 2 <= 2_000_000:
+        path = kernel.route(a.shape[1])
+        check(kernel.lcs_kernel.launches_by_route[path] == before[path] + 1,
+              f"lcs {name}: not launched on route {path}")
+        # lcs_ref never matches a negative code, as the encoder never emits one
+        if a.shape[0] * a.shape[1] ** 2 <= 2_000_000 and not name.startswith("cross"):
             check(torch.equal(got, lcs_ref(a, b)), f"lcs kernel != lcs_ref on {name}")
-        log(f"lcs {name}: bit-equal to plain ({a.shape[0]} rows)")
+        log(f"lcs {name}: bit-equal to plain ({a.shape[0]} rows, route {path})")
     check(bool((ops.lcs(same, same, mode="pallas") == 10).all()), "identical rows must give L")
 
     N, H, L = table_shape
@@ -533,7 +571,7 @@ def _counted(fn):
     flash.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     flash.copies = 0
     wrappers["ssd_intra"].launches_by_route = {"wgmma": 0, "cuda_cores": 0}
-    for name in ("fused_gather_score", "fused_windowed_gather_score"):
+    for name in ("lcs_kernel", "fused_gather_score", "fused_windowed_gather_score"):
         wrappers[name].launches_by_route = {"registers": 0, "shared": 0}
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
@@ -699,6 +737,7 @@ def phase_kernel_path(torch, dev, n=KERNEL_N):
     batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
     kres, kcounts = _run_counted(_engine(dev, forest, "kernel", rho=RHO), batch)
     expect_launched(kcounts, ["lcs_kernel"])
+    routes = _lcs_routes(f"kernel-path N={n}")
     _stats_line(f"kernel-path N={n} lcs_impl=kernel", kres, kcounts)
     fres, fcounts = _run_counted(_engine(dev, forest, "fused", rho=RHO), batch)
     expect_launched(fcounts, ["fused_gather_score"])
@@ -713,7 +752,19 @@ def phase_kernel_path(torch, dev, n=KERNEL_N):
     L = enc.codes.shape[2]
     a = repad(enc.codes[li], enc.lengths[li], PAD_CODE_A).reshape(-1, L)
     b = repad(enc.codes[ri], enc.lengths[ri], PAD_CODE_B).reshape(-1, L)
-    return kcounts, (a, b)
+    return kcounts, routes, (a, b)
+
+
+def _lcs_routes(tag):
+    """The LCS kernel's launches by route since the counts were set to 0;
+    every one must be on the register route."""
+    from repro_torch.kernels.lcs import kernel
+
+    routes = dict(kernel.lcs_kernel.launches_by_route)
+    check(routes["registers"] > 0 and routes["shared"] == 0,
+          f"{tag}: the LCS kernel launched on routes {routes}")
+    log(f"{tag}: lcs_kernel launches_by_route {routes}")
+    return routes
 
 
 def _sub_engine(dev, forest, impl, window=SUB_WINDOW, **cfg):
@@ -864,15 +915,22 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
 def phase_subtraj_kernel_path(torch, dev, n=SUB_KERNEL_N):
     from repro_torch.data import synthetic_setup
 
+    from repro_torch.kernels.lcs import ops
+
     batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
-    kres, kcounts = _run_counted(_sub_engine(dev, forest, "kernel"), batch)
+    with _Capture(ops, "lcs_kernel") as first:  # the operands of its first launch, for timing
+        kres, kcounts = _run_counted(_sub_engine(dev, forest, "kernel"), batch)
     expect_launched(kcounts, ["lcs_kernel"])
+    routes = _lcs_routes(f"subtraj kernel-path N={n}")
     _sub_stats_line(f"subtraj kernel-path N={n} lcs_impl=kernel", kres, kcounts)
     fres, fcounts = _run_counted(_sub_engine(dev, forest, "fused"), batch)
     expect_launched(fcounts, ["fused_windowed_gather_score"])
     _sub_stats_line(f"subtraj kernel-path N={n} lcs_impl=fused", fres, fcounts)
     _same_result(kres, fres, f"subtraj N={n} kernel vs fused")
     log(f"subtraj kernel-path: lcs_impl=kernel == lcs_impl=fused at N={n}")
+    a, b = first.args
+    check(a.shape[1] == SUB_WINDOW, f"subtraj kernel-path: LCS rows of width {a.shape[1]}")
+    return kcounts, routes, (a.contiguous(), b.contiguous())
 
 
 def phase_shingle(torch, dev, main_types, sub_types, k=3):
@@ -898,7 +956,39 @@ def phase_shingle(torch, dev, main_types, sub_types, k=3):
         check(bool((got[:, S:] == PAD_KEY).all()), f"shingle_keys padding on the {name}")
         log(f"shingle {name} {list(t.shape)} k={k}: kernel bit-equal to plain, "
             f"keys equal shingles_from_types on the first {S} of {s_pad} columns")
+    _shingle_edge_cases(torch, dev)
     return counts
+
+
+def _shingle_edge_cases(torch, dev):
+    """The shingle kernel against its plain version, bit-equal, at edge
+    shapes: (N, L, k, Q, s_pad) with rows of every length 0..L + 1."""
+    import numpy as np
+
+    from repro_torch.kernels.shingle import kernel
+
+    rng = np.random.default_rng(4)
+    cases = [
+        (30_001, 40, 2, 300, 896),    # rows wider than 32: the shared-memory slice
+        (30_001, 33, 2, 300, 528),    # s_pad = C(33, 2), a multiple of 4, not of 128
+        (30_001, 10, 3, 2048, 128),   # 2048^3 wraps int32
+        (30_001, 10, 3, 300, 121),    # s_pad not a multiple of 4: scalar stores
+        (30_001, 10, 3, 300, 256),    # two chunks a row
+        (30_001, 12, 9, 30, 220),     # k past the register orders: the table through L1
+        (30_001, 5, 1, 7, 5),
+        (30_001, 2, 3, 7, 4),         # rows shorter than k: no combination, all PAD_KEY
+        # C(33, 6) = 1,107,568 columns: more 128-column chunks than the grid
+        # has warps, so each warp walks chunks (few rows keep the plain small)
+        (65, 33, 6, 30, 1_107_568),
+    ]
+    for n, L, k, Q, s_pad in cases:
+        lengths = torch.as_tensor(rng.integers(0, L + 2, size=n).astype(np.int32), device=dev)
+        types = torch.as_tensor(rng.integers(0, Q, size=(n, L)).astype(np.int32), device=dev)
+        got = kernel.shingle_kernel(types, lengths, k=k, num_types=Q, s_pad=s_pad)
+        want = kernel.shingle_plain(types, lengths, k=k, num_types=Q, s_pad=s_pad)
+        check(torch.equal(got, want), f"shingle kernel != plain at N={n} L={L} k={k} Q={Q} "
+              f"s_pad={s_pad}")
+    log(f"shingle edge shapes (N, L, k, Q, s_pad) {cases}: bit-equal to plain")
 
 
 def _time_ms(torch, fn, reps=5, batch=1):
@@ -954,8 +1044,30 @@ def _needed_cells(torch, H, wla, wlb, identical):
     return H * int((wla.long() * wlb.long() * (~identical)).sum())
 
 
+def _lcs_launch_timing(torch, a, b):
+    """The batched LCS kernel alone (#2) on ``a``, ``b``: the register route
+    as the engine launches it and the shared route (the parent design)
+    forced at the same width, in turns, ten launches an event pair; the
+    register route without its DP; and the bound of these operands."""
+    from repro_torch.kernels.lcs import kernel
+
+    B, L = a.shape
+    out = torch.empty((B,), dtype=torch.int32, device=a.device)
+
+    def launch(name):
+        return lambda: kernel.launch(name, a, b, out)
+
+    turns = [_time_ms(torch, launch(v), batch=10) for v in ("registers", "shared", "shared", "registers")]
+    ms, shared_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    bound, by = _bound_ms(B * (2 * L * 4 + 4), B * L * L)
+    return dict(launch_ms=ms, shared_route_ms=shared_ms, shared_over_registers=shared_ms / ms,
+                loads_only_ms=_time_ms(torch, launch("loads_only"), batch=10),
+                launch_turns_ms=turns, launch_bound_share=bound / ms, rows=B, width=L,
+                bound_ms=bound, bound_by=by)
+
+
 def phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands, kernel_counts,
-                 figures):
+                 kernel_routes, figures):
     from repro_torch.kernels.lcs import fused, kernel
 
     entries = []
@@ -1011,19 +1123,40 @@ def phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands,
     ms = _time_ms(torch, run)
     plain_ms = _time_ms(torch, lambda: kernel.lcs_plain(a, b), reps=3)
     err = float((run() - kernel.lcs_plain(a, b)).abs().max())
-    bound, by = _bound_ms(B * (2 * L * 4 + 4), B * L * L)
+    parts = _lcs_launch_timing(torch, a, b)
+    bound, by = parts.pop("bound_ms"), parts.pop("bound_by")
     entries.append(dict(
         name="lcs_kernel", route="cuda",
         source="src/repro_torch/kernels/csrc/lcs.cu",
         replaces="src/repro/kernels/lcs/kernel.py:100",
         launches=kernel_counts["lcs_kernel"], max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None, **parts,
+        launches_by_route=kernel_routes, register_kernel=figures["lcs"],
         path=f"SSH engine N={KERNEL_N} lcs_impl=kernel",
         shape=f"rows {B} x L {L}",
     ))
-    log(f"timing lcs_kernel: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-        f"by {by}); library_ms: no single PyTorch call computes an LCS")
+    log(f"timing lcs_kernel: {ms:.3f} ms with its wrapper, one launch an event pair (the launch "
+        f"alone {parts['launch_ms']:.3f} ms, ten an event pair, {parts['launch_bound_share']:.1%} "
+        f"of its bound; the shared route (the parent design) at L = {L} "
+        f"{parts['shared_route_ms']:.3f} ms = {parts['shared_over_registers']:.2f}x; loads and "
+        f"stores alone {parts['loads_only_ms']:.3f} ms; plain {plain_ms:.3f} ms); bound "
+        f"{bound:.3f} ms by {by}; routes {kernel_routes}; library_ms: no single PyTorch call "
+        "computes an LCS")
     return entries
+
+
+def phase_timing_lcs_windows(torch, entries, operands, routes):
+    """#2's launch alone on the subtrajectory kernel path's W = 8 windows,
+    added to its entry."""
+    parts = _lcs_launch_timing(torch, *operands)
+    parts["launches_by_route"] = routes
+    next(e for e in entries if e["name"] == "lcs_kernel")["subtraj_kernel_path"] = parts
+    log(f"timing lcs_kernel at the subtraj kernel path's {parts['rows']} windows of "
+        f"W = {parts['width']}: the launch alone {parts['launch_ms']:.3f} ms "
+        f"({parts['launch_bound_share']:.1%} of its bound {parts['bound_ms']:.3f} ms by "
+        f"{parts['bound_by']}); the shared route {parts['shared_route_ms']:.3f} ms = "
+        f"{parts['shared_over_registers']:.2f}x; loads and stores alone "
+        f"{parts['loads_only_ms']:.3f} ms; routes {routes}")
 
 
 def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, sub_routes, main_types,
@@ -1091,18 +1224,39 @@ def phase_timing_windowed_and_shingle(torch, sub_coords, sub_counts, sub_routes,
     plain_ms = _time_ms(torch, plain, reps=3)
     err = float((run().long() - plain().long()).abs().max())
     bound, by = _bound_ms(N * (L + 1) * 4 + N * s_pad * 4, N * s_pad * k)
+    # the kernel alone and the parent design in turns, ten launches an event
+    # pair, and the kernel's loads and stores without its picks and pack
+    out = torch.empty((N, s_pad), dtype=torch.int32, device=types.device)
+
+    def launch(name):
+        return lambda: kernel.launch(name, types, lengths, out, k=k, num_types=NUM_TYPES)
+
+    turns = [_time_ms(torch, launch(v), batch=10) for v in ("engine", "parent", "parent", "engine")]
+    launch_ms, parent_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    loads_stores_ms = _time_ms(torch, launch("loads_stores"), batch=10)
+    # the card's write rate over the same output: PyTorch's fill of it (a
+    # yardstick of the stores alone, not a call computing the function)
+    fill_ms = _time_ms(torch, lambda: out.fill_(7), batch=10)
     entries.append(dict(
         name="shingle_kernel", route="cuda",
         source="src/repro_torch/kernels/csrc/shingle.cu",
         replaces="src/repro/kernels/shingle/kernel.py:79",
         launches=shingle_counts["shingle_kernel"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        launch_ms=launch_ms, parent_design_ms=parent_ms, parent_over_launch=parent_ms / launch_ms,
+        loads_stores_ms=loads_stores_ms, fill_output_ms=fill_ms, launch_turns_ms=turns,
+        launch_bound_share=bound / launch_ms,
+        register_kernel=figures["shingle"],
         path=f"public op shingle_keys on the main world's type codes (N={MAIN_N}; "
              "neither engine calls it)",
         shape=f"types {list(types.shape)} k {k} s_pad {s_pad}",
     ))
-    log(f"timing shingle_kernel: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-        f"by {by}); library_ms: no single PyTorch call packs shingle keys")
+    log(f"timing shingle_kernel: {ms:.3f} ms with its wrapper, one launch an event pair (the "
+        f"launch alone {launch_ms:.3f} ms, ten an event pair, {bound / launch_ms:.1%} of its "
+        f"bound; the parent design {parent_ms:.3f} ms = {parent_ms / launch_ms:.2f}x; loads and "
+        f"stores alone {loads_stores_ms:.3f} ms; PyTorch's fill of the output {fill_ms:.3f} ms; "
+        f"plain {plain_ms:.3f} ms); bound {bound:.3f} ms "
+        f"by {by}; library_ms: no single PyTorch call packs shingle keys")
     return entries
 
 
@@ -1993,15 +2147,17 @@ def main() -> int:
     phase_fig1(dev)
     phase_small(torch, dev)
     _, main_counts, main_inputs, main_figures = phase_main(torch, dev)
-    kernel_counts, kernel_operands = phase_kernel_path(torch, dev)
+    kernel_counts, kernel_routes, kernel_operands = phase_kernel_path(torch, dev)
     entries = phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands,
-                           kernel_counts, figures)
+                           kernel_counts, kernel_routes, figures)
     codes, lengths = main_inputs[:2]
     main_types = (codes[:, 0, :].contiguous(), lengths)
     del main_inputs, kernel_operands, codes
     phase_subtraj_small(torch, dev)
     sub_counts, sub_coords, sub_types, sub_routes = phase_subtraj(torch, dev)
-    phase_subtraj_kernel_path(torch, dev)
+    _, sub_kernel_routes, sub_kernel_operands = phase_subtraj_kernel_path(torch, dev)
+    phase_timing_lcs_windows(torch, entries, sub_kernel_operands, sub_kernel_routes)
+    del sub_kernel_operands
     shingle_counts = phase_shingle(torch, dev, main_types, sub_types)
     entries += phase_timing_windowed_and_shingle(
         torch, sub_coords, sub_counts, sub_routes, main_types, shingle_counts, figures

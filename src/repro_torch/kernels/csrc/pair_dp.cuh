@@ -15,7 +15,8 @@
 //   score_pair_levels_regs<W, F>  widths 1..32 (the register route): W is a
 //     template argument, so the a row, the b row and the DP row live in
 //     registers and both loops unroll into straight-line code; a cell is
-//     three SASS instructions (ISETP, VIMNMX, a predicated VIADD).
+//     three SASS instructions (ISETP, VIMNMX, a predicated VIADD).  Its DP,
+//     lcs_dp_regs<W>, is also the batched LCS kernel's (lcs.cu).
 //   score_pair_levels             widths 33..126 (the shared route): the
 //     runtime-W body, b row and DP row in shared memory as [W][blockDim].
 #pragma once
@@ -62,6 +63,35 @@ __device__ __forceinline__ void load_row(const int* __restrict__ p, int n, int p
   for (int j = 0; j < W; ++j) out[j] = j < n ? __ldg(p + j) : pad;
 }
 
+// The W x W row DP of two rows held in registers (W a template argument,
+// so every loop unrolls and the DP row stays in registers): the cell is
+// dp[i+1][j+1] = a[i] == b[j] ? dp[i][j] + 1 : max(dp[i][j+1], dp[i+1][j]),
+// a select that compiles to about three instructions (ISETP, VIMNMX, a
+// predicated VIADD).  Rows i >= rows are skipped (rows = W runs them all).
+// Returns the last DP entry: the LCS of a[0, rows) and b.  Shared by the
+// fused scorers' register route and the batched LCS kernel (lcs.cu).
+template <int W>
+__device__ __forceinline__ int lcs_dp_regs(const int (&av)[W], const int (&bv)[W], int rows) {
+  int dp[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) dp[j] = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if (i >= rows) break;
+    int diag = 0;    // dp[i][j]
+    int left_v = 0;  // dp[i + 1][j]
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int up = dp[j];  // dp[i][j + 1]
+      const int v = (av[i] == bv[j]) ? diag + 1 : max(up, left_v);
+      diag = up;
+      left_v = v;
+      dp[j] = v;
+    }
+  }
+  return dp[W - 1];
+}
+
 // The register route's body.  With kEngine it runs every row and column of
 // the W x W DP: on an H100 the main path's kernel is bound by its gathered
 // b rows, not by its cells, and the subtrajectory path's windows are nearly
@@ -80,11 +110,9 @@ __device__ __forceinline__ float score_pair_levels_regs(
   for (int h = 0; h < H; ++h) {
     // the a row is shared by most lanes of a warp (pairs sorted by left
     // row), so it comes from L1; the b rows are scattered
-    int av[W], bv[W], dp[W];
+    int av[W], bv[W];
     load_row<W>(arow + h * row_stride, wla, -1, av);
     load_row<W>(brow + h * row_stride, wlb, -2, bv);
-#pragma unroll
-    for (int j = 0; j < W; ++j) dp[j] = 0;
     int lvl;
     if constexpr ((F & kDp) != 0) {
       // kStop: rows past wla hold the sentinel -1, which matches only a
@@ -99,21 +127,7 @@ __device__ __forceinline__ float score_pair_levels_regs(
         for (int j = 0; j < W; ++j) b_holds_a_sentinel |= bv[j] == -1;
         if (!b_holds_a_sentinel) rows = wla;
       }
-#pragma unroll
-      for (int i = 0; i < W; ++i) {
-        if (i >= rows) break;
-        int diag = 0;    // dp[i][j]
-        int left_v = 0;  // dp[i + 1][j]
-#pragma unroll
-        for (int j = 0; j < W; ++j) {
-          const int up = dp[j];  // dp[i][j + 1]
-          const int v = (av[i] == bv[j]) ? diag + 1 : max(up, left_v);
-          diag = up;
-          left_v = v;
-          dp[j] = v;
-        }
-      }
-      lvl = dp[W - 1];
+      lvl = lcs_dp_regs<W>(av, bv, rows);
     } else {
       // loads and stores only: a value that depends on every loaded code,
       // so the loads stay (a wrong LCS, on purpose)

@@ -47,7 +47,9 @@ from repro_torch.core.similarity import (
 )
 from repro_torch.core.subtraj import slice_lengths
 from repro_torch.kernels import _build
-from repro_torch.kernels.lcs.kernel import SENT_SHIFT, SENT_WINDOW, threads_for
+from repro_torch.kernels.lcs.kernel import (
+    MAX_REGISTER_WIDTH, ROUTES, SENT_SHIFT, SENT_WINDOW, route, threads_for,
+)
 
 # the canonical lcs_impl-name -> dispatch-mode mapping for the fused family
 FUSED_IMPL_MODES = {
@@ -58,11 +60,9 @@ FUSED_IMPL_MODES = {
 
 _DISPATCH_MODES = ("auto", "pallas", "interpret", "ref")
 
-# widest DP the register route takes; the launchers have a register kernel
-# for every width up to csrc/pair_dp.cuh kMaxRegisterWidth and refuse wider
-MAX_REGISTER_WIDTH = 32
-# the launchers' route codes (csrc/pair_dp.cuh kRouteRegisters, kRouteShared)
-ROUTES = ("registers", "shared")
+# route(W), MAX_REGISTER_WIDTH and ROUTES are the batched LCS kernel's
+# (kernels/lcs/kernel.py): the launchers have a register kernel for every
+# DP width up to 32 and refuse wider.
 # threads per block (on an H100 the register kernels ran alike at 64 and
 # 128, slower at 256 and 512); the shared route's block is also capped by
 # its [2, W, threads] int32 rows in threads_for
@@ -78,13 +78,6 @@ VARIANTS = {
     "stop_at_wla": 2,
     "loads_only": 3,          # a wrong LCS on purpose
 }
-
-
-def route(W: int) -> str:
-    """The kernel route of a DP width: ``"registers"`` (the width is a
-    template argument, rows and DP in registers) up to 32, ``"shared"``
-    (the runtime-width body, rows and DP in shared memory) above."""
-    return "registers" if W <= MAX_REGISTER_WIDTH else "shared"
 
 
 def block_threads(W: int) -> int:

@@ -11,9 +11,11 @@
                package's interpreted kernel body).
   "wavefront"  always the plain anti-diagonal wavefront.
 
-``block_b`` is a cap on the threads per CUDA block, not the block itself:
-:func:`_block_for` picks the power of two at or under it that leaves the
-fewest idle threads in the ragged last block.
+``block_b`` is a cap on the threads per CUDA block of the kernel's shared
+route (rows wider than 32), not the block itself: :func:`_block_for` picks
+the power of two at or under it that leaves the fewest idle threads in the
+ragged last block.  The register route (rows up to 32) always runs 128
+rows a block.
 """
 from __future__ import annotations
 

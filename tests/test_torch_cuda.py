@@ -51,6 +51,7 @@ def cuda():
                     tfused.fused_windowed_gather_score, tshk.shingle_kernel,
                     tmhk.minhash_kernel, tattn.flash_attention_kernel, tssd.ssd_intra):
         wrapper.launches = 0
+    tkernel.lcs_kernel.launches_by_route = {"registers": 0, "shared": 0}
     tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     tattn.flash_attention_kernel.copies = 0
     tssd.ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
@@ -88,6 +89,86 @@ def test_lcs_kernel_equals_plain(cuda, B, L, block_b):
     assert tkernel.lcs_kernel.launches == 1
     torch.cuda.synchronize()
     assert torch.equal(got, tkernel.lcs_plain(a, b))
+
+
+def _hold_lcs(a, b, route):
+    """#2 through its wrapper, bit-equal to its plain version, launched once
+    on ``route``."""
+    got = tkernel.lcs_kernel(a, b)
+    assert tkernel.lcs_kernel.launches_by_route == {
+        "registers": int(route == "registers"), "shared": int(route == "shared")}
+    torch.cuda.synchronize()
+    assert torch.equal(got, tkernel.lcs_plain(a, b))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", list(range(1, 33)) + [33, 64, 126])
+def test_lcs_kernel_every_width(cuda, L):
+    """Every register width (a template instantiation each) and the shared
+    route's, at a batch that ends in a ragged 128-row tile."""
+    _hold_lcs(*_rows(4099, L, L, cuda, alphabet=4), tkernel.route(L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 127, 129, 100_003])
+@pytest.mark.parametrize("L", [8, 10])
+def test_lcs_kernel_ragged_batches(cuda, B, L):
+    _hold_lcs(*_rows(B, L, B + L, cuda), "registers")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [10, 33])
+def test_lcs_kernel_side_sentinels(cuda, L):
+    """Plain equality: the pads (-1 in a, -2 in b) never match each other,
+    and valid codes equal to the other side's pad match it."""
+    a, b = _rows(20_011, L, 7, cuda)
+    pads = torch.full_like(a, -1), torch.full_like(b, -2)
+    assert not bool(_hold_lcs(*pads, tkernel.route(L)).any())
+    tkernel.lcs_kernel.launches_by_route = {"registers": 0, "shared": 0}
+    _hold_lcs(torch.where(a == 0, -2, a), torch.where(b == 0, -1, b), tkernel.route(L))
+
+
+@pytest.mark.cuda
+def test_lcs_kernel_unaligned_rows(cuda):
+    """Operands 40 bytes into their storage: the register route stages them
+    one int a load."""
+    a, b = _rows(5_001, 10, 3, cuda)
+    assert a[1:].data_ptr() % 16 != 0
+    _hold_lcs(a[1:], b[1:], "registers")
+
+
+@pytest.mark.cuda
+def test_lcs_register_route_refuses_rows_wider_than_its_kernels(cuda):
+    """The launcher runs the route it is given; at L = 33 it has no register
+    kernel and refuses rather than taking another route."""
+    a, b = _rows(100, 33, 1, cuda)
+    out = torch.empty((100,), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="registers"):
+        tkernel.launch("registers", a, b, out)
+    tkernel.launch("shared", a, b, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tkernel.lcs_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 10])
+def test_lcs_routes_and_variants_launch_at_the_path_widths(cuda, L):
+    """Both routes by name equal the plain version; the loads-only variant
+    launches at the paths' widths and nowhere else."""
+    a, b = _rows(30_001, L, L, cuda)
+    want = tkernel.lcs_plain(a, b)
+    for name in tkernel.ROUTES:
+        out = torch.full((30_001,), -7, dtype=torch.int32, device=cuda)
+        tkernel.launch(name, a, b, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+    out = torch.empty_like(want)
+    tkernel.launch("loads_only", a, b, out)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        tkernel.launch("loads_only", *_rows(30_001, 9, L, cuda), out)
+    assert tkernel.lcs_kernel.launches == 0  # by name: uncounted
 
 
 @pytest.mark.cuda
@@ -163,6 +244,83 @@ def test_shingle_kernel_equals_plain(cuda, k, Q, L):
     keys = tshingle.shingle_keys(types, lengths, k=k, num_types=Q)
     want = tshingle.shingle_keys(types.cpu(), lengths.cpu(), k=k, num_types=Q)
     assert torch.equal(keys.cpu(), want)
+
+
+def _shingle_case(n, L, k, Q, seed, dev):
+    """Codes in [0, Q) and lengths 0..L + 1 (rows shorter than k among them)."""
+    rng = np.random.default_rng(seed)
+    lengths = torch.as_tensor(rng.integers(0, L + 2, size=n).astype(np.int32), device=dev)
+    types = torch.as_tensor(rng.integers(0, Q, size=(n, L)).astype(np.int32), device=dev)
+    return types, lengths
+
+
+def _hold_shingle(types, lengths, k, Q, s_pad):
+    got = tshk.shingle_kernel(types, lengths, k=k, num_types=Q, s_pad=s_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tshk.shingle_plain(types, lengths, k=k, num_types=Q, s_pad=s_pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("L", list(range(1, 41)))
+def test_shingle_kernel_every_width_and_order(cuda, L, k):
+    """L 1-32 on the shuffle route, 33-40 on the shared-memory slice, k 1-4
+    in registers; 1,001 rows end in a ragged block; s_pad = C(L, k) rounded
+    up to 128 as the op pads it."""
+    types, lengths = _shingle_case(1001, L, k, 300, 40 * k + L, cuda)
+    s_pad = -(-num_shingles(L, k) // 128) * 128
+    _hold_shingle(types, lengths, k, 300, s_pad)
+    assert tshk.shingle_kernel.launches == int(s_pad > 0)  # L < k: nothing to write
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k", [(10, 3), (7, 2), (33, 2)])
+@pytest.mark.parametrize("pad", ["S", "S_up_to_4", "not_multiple_of_4", "multiple_of_128"])
+def test_shingle_kernel_output_widths(cuda, L, k, pad):
+    """16-byte stores where s_pad % 4 == 0, scalar stores otherwise."""
+    S = num_shingles(L, k)
+    s_pad = {"S": S, "S_up_to_4": -(-S // 4) * 4, "not_multiple_of_4": S + 1 + (S % 4 == 3),
+             "multiple_of_128": -(-S // 128) * 128 + 128}[pad]
+    assert (s_pad % 4 != 0) == (pad == "not_multiple_of_4") or pad == "S"
+    _hold_shingle(*_shingle_case(3001, L, k, 300, S + s_pad, cuda), k, 300, s_pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,k,Q,s_pad", [
+    (5001, 10, 3, 2048, 128),       # 2048**3 = 2**33: the pack wraps int32
+    (5001, 12, 2, 1 << 20, 128),    # 2**40
+    (3001, 12, 9, 30, 220),         # k past the register orders: the table through L1
+    (3001, 10, 10, 5, 1),
+    (3001, 2, 3, 7, 4),             # C(2, 3) = 0: every column PAD_KEY
+    (65, 33, 6, 30, 1_107_568),     # more 128-column chunks than the grid has warps
+    (1, 10, 3, 300, 128),
+])
+def test_shingle_kernel_edge_shapes(cuda, n, L, k, Q, s_pad):
+    _hold_shingle(*_shingle_case(n, L, k, Q, n + L + k, cuda), k, Q, s_pad)
+
+
+@pytest.mark.cuda
+def test_shingle_kernel_refuses_rows_wider_than_its_slice(cuda):
+    types, lengths = _shingle_case(2, tshk.MAX_WIDTH + 1, 1, 5, 0, cuda)
+    with pytest.raises(ValueError, match="at most"):
+        tshk.shingle_kernel(types, lengths, k=1, num_types=5, s_pad=tshk.MAX_WIDTH + 1)
+    assert tshk.shingle_kernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_shingle_variants_launch(cuda):
+    """The parent design equals the plain version; the loads-and-stores
+    variant launches at k = 3, L <= 32 only; neither is counted."""
+    types, lengths = _shingle_case(30_001, 10, 3, 300, 5, cuda)
+    out = torch.empty((30_001, 128), dtype=torch.int32, device=cuda)
+    tshk.launch("parent", types, lengths, out, k=3, num_types=300)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tshk.shingle_plain(types, lengths, k=3, num_types=300, s_pad=128))
+    tshk.launch("loads_stores", types, lengths, out, k=3, num_types=300)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        tshk.launch("loads_stores", types, lengths, out, k=2, num_types=300)
+    assert tshk.shingle_kernel.launches == 0
 
 
 @pytest.mark.cuda

@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.lcs import fused as tfused
+from repro_torch.kernels.lcs import kernel as tkernel
+from repro_torch.kernels.shingle import kernel as tshk
 
 REGISTER_WIDTHS = list(range(1, 33))
 SHARED_WIDTHS = [33, 64, 126]
@@ -261,6 +263,10 @@ def _c_signature(source, symbol):
     ("fused_windowed_score", "fused_windowed_score_launch", tfused.WINDOWED_LAUNCH_ARGTYPES),
     ("fused_windowed_score", "fused_windowed_score_variant_launch",
      tfused.WINDOWED_LAUNCH_ARGTYPES),
+    ("lcs", "lcs_launch", tkernel.LAUNCH_ARGTYPES),
+    ("lcs", "lcs_variant_launch", tkernel.LAUNCH_ARGTYPES),
+    ("shingle", "shingle_launch", tshk.LAUNCH_ARGTYPES),
+    ("shingle", "shingle_variant_launch", tshk.VARIANT_ARGTYPES),
 ])
 def test_launcher_prototypes_match_the_sources(source, symbol, argtypes):
     assert argtypes == _c_signature(source, symbol)

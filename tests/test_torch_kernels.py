@@ -18,6 +18,7 @@ by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import functools
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,6 +162,33 @@ def test_threads_for_respects_shared_memory():
     for L in range(1, 127):
         t = tkernel.threads_for(L, 1024)
         assert t & (t - 1) == 0 and 2 * L * 4 * t <= 48 * 1024
+
+
+@pytest.mark.parametrize("L,want", [(1, "registers"), (8, "registers"), (10, "registers"),
+                                    (32, "registers"), (33, "shared"), (64, "shared"),
+                                    (126, "shared"), (127, None)])
+def test_lcs_route_by_width(L, want):
+    """Widths up to 32 take the register kernels, 33-126 the shared-memory
+    kernel; 127 is refused (LCS values are carried in int8)."""
+    if want is None:
+        with pytest.raises(ValueError, match="127"):
+            tkernel.route(L)
+    else:
+        assert tkernel.route(L) == want
+        assert tfused.route(L) == want  # the fused scorers' rule is the same
+
+
+@pytest.mark.parametrize("L", [1, 8, 32, 33])
+@pytest.mark.parametrize("B", [1, 127, 129])
+def test_lcs_matches_pallas_interpret_either_side_of_the_routes(L, B, counts):
+    """The plain version (the kernel wrapper's CPU path) against the Pallas
+    kernel in interpret mode, at widths either side of the register route
+    and batches either side of its 128-row tile."""
+    a, b = _rows(B, L, 1000 * L + B)
+    want = jkernel.lcs_pallas(jnp.asarray(a), jnp.asarray(b), block_b=B, interpret=True)
+    assert_same(tkernel.lcs_kernel(T(a), T(b)), want)
+    assert_same(tops.lcs(T(a), T(b), mode="pallas"), want)
+    assert tkernel.lcs_kernel.launches == 0
 
 
 def test_lcs_wrappers_reject_bad_operands():
@@ -310,6 +338,39 @@ def test_shingle_keys_match_pallas_interpret(k, Q, L, dedup, counts):
     assert tshk.shingle_kernel.launches == 0  # CPU tensors never launch
 
 
+def _shingle_types(n, L, Q, seed, k):
+    """Codes in [0, Q) and lengths 0..L + 1, rows shorter than k among them."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, L + 2, size=n).astype(np.int32)
+    lengths[:3] = (0, L, k - 1)
+    types = rng.integers(0, Q, size=(n, L)).astype(np.int32)
+    return types, lengths
+
+
+@pytest.mark.parametrize("k,Q,L", [(2, 300, L) for L in range(33, 41)] + [(3, 2048, 10)])
+def test_shingle_keys_match_pallas_interpret_at_edge_shapes(k, Q, L, counts):
+    """Rows wider than 32 (the kernel's shared-memory route) and a base whose
+    pack wraps int32 (2048**3 = 2**33), through the public op."""
+    types, lengths = _shingle_types(19, L, Q, L + Q, k)
+    want = jshingle.shingle_keys(jnp.asarray(types), jnp.asarray(lengths), k=k,
+                                 num_types=Q, block_b=8, dedup=False)
+    got = tshingle.shingle_keys(T(types), T(lengths), k=k, num_types=Q, dedup=False)
+    assert_same(got, want)
+    assert tshk.shingle_kernel.launches == 0
+
+
+@pytest.mark.parametrize("L,k,s_pad", [(10, 3, 256), (17, 2, 256)])
+def test_shingle_kernel_matches_pallas_interpret_at_s_pad_256(L, k, s_pad, counts):
+    """The raw kernel call at s_pad = 256: two 128-column chunks a row."""
+    from repro.kernels.shingle import kernel as jshk
+
+    types, lengths = _shingle_types(16, L, 300, L * k, k)
+    want = jshk.shingle_pallas(jnp.asarray(types), jnp.asarray(lengths), k=k, num_types=300,
+                               s_pad=s_pad, block_b=8, interpret=True)
+    assert_same(tshk.shingle_kernel(T(types), T(lengths), k=k, num_types=300, s_pad=s_pad), want)
+    assert tshk.shingle_kernel.launches == 0
+
+
 def test_shingle_keys_agree_with_shingles_from_types():
     """The op's first C(L, k) columns are ``shingles_from_types``' keys."""
     from repro_torch.core.shingling import num_shingles, shingles_from_types
@@ -334,6 +395,43 @@ def test_shingle_kernel_rejects_bad_operands():
         tshk.shingle_kernel(types, lengths, k=3, num_types=5, s_pad=8)
     with pytest.raises(ValueError, match="positive"):
         tshk.shingle_kernel(types, lengths, k=0, num_types=5, s_pad=128)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' constants against the CUDA sources (no card)
+# ---------------------------------------------------------------------------
+def _constant(source, name):
+    text = (_build.CSRC / source).read_text()
+    m = re.search(rf"constexpr int {name} = ([^;]+);", text)
+    assert m, f"{name} not found in {source}"
+    return eval(m.group(1), {})  # an integer expression such as 48 * 1024 / 4
+
+
+def test_lcs_wrapper_matches_its_source():
+    """The register route's block and widest width, the route codes and the
+    variant codes the wrapper passes are the ones lcs.cu launches."""
+    assert _constant("lcs.cu", "kRowsPerBlock") == tkernel.REGISTER_THREADS == 128
+    assert _constant("pair_dp.cuh", "kMaxRegisterWidth") == tkernel.MAX_REGISTER_WIDTH == 32
+    assert tkernel.ROUTES == ("registers", "shared")
+    launcher = (_build.CSRC / "lcs.cu").read_text().split('extern "C" int lcs_variant_launch')[1]
+    assert {int(c) for c in re.findall(r"variant != (\d+)", launcher)} == set(
+        tkernel.VARIANTS.values())
+
+
+def test_shingle_wrapper_matches_its_source():
+    assert _constant("shingle.cu", "kMaxWidth") == tshk.MAX_WIDTH == 12_288
+    launcher = (_build.CSRC / "shingle.cu").read_text().split(
+        'extern "C" int shingle_variant_launch')[1]
+    assert {int(c) for c in re.findall(r"variant == (\d+)", launcher)} == set(
+        tshk.VARIANTS.values())
+
+
+def test_shingle_device_combos_are_cached_per_shape():
+    """The combination table is uploaded once per (L, k, device)."""
+    first = tshk.device_combos(10, 3, torch.device("cpu"))
+    assert tshk.device_combos(10, 3, torch.device("cpu")) is first
+    assert first.dtype == torch.int32 and first.shape == (120, 3)
+    assert tshk.device_combos(11, 3, torch.device("cpu")).shape == (165, 3)
 
 
 # ---------------------------------------------------------------------------
