@@ -69,8 +69,32 @@ phases, and exits non-zero if any phase fails:
    on the scalability world at 1,000,000 trajectories (band keys against the
    plain signatures', a slice re-scored); "brp" at 50,000 (the card's keys
    against the CPU's); the centralized baseline at 10,000 against the SSH
-   engine (the paper's lossless claim).
-13. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
+   engine (the paper's lossless claim); the MinHash kernel timed as the
+   fused scorers are, by the launch alone too.
+13. stream small — ``StreamingEngine`` on 3,000 trajectories in 5
+   micro-batches (a window of 3 updates, a TTL of 2 on one batch, an
+   explicit retire, a compaction) on the card against the same stream on
+   the CPU with plain versions, at every update: the scored buffer slot by
+   slot, the similar pairs and the communities; for "unionfind" and "jit"
+   components, cliques, ``score_prune``, the "ssh", "minhash" (#5 keys) and
+   "brp" backends, "fused" (#1) and "kernel" (#2), and once under
+   ``REPRO_FAULT_INJECT=1``.
+14. stream — fig13's world, 200,000 trajectories as 10 micro-batches of
+   20,000 with a window of 4 updates (compaction from update 6 on) and 1%
+   of the live ids retired after update 7, "fused", union-find components:
+   the final update equals a one-shot engine run on the card over the
+   survivors (similar pairs, communities and the scored (pair, level_lcs,
+   mss) set, ids mapped); each update's phase seconds and resident bytes
+   are logged.  A 20,000-row stream of the same shape with ("jit",
+   "kernel") equals ("unionfind", "fused").
+15. serve — ``QueryEngine(stream, k=10)`` over that final world answers
+   1,000 fresh trajectories and 1,000 live rows, with ``serve_prune`` off
+   and on, at k = 10 and with per-query k and rho, each against a
+   whole-live-world brute force (every (query, live row) pair scored by #1,
+   ranked with numpy ``lexsort`` by (mss desc, row asc); a 1M-pair slice
+   re-scored by the plain version); prune on equals prune off; queries per
+   second, rounds and cells skipped are logged.
+16. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
    64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
    bfloat16 on the wgmma route and again on the CUDA-core route; SSD
@@ -78,9 +102,9 @@ phases, and exits non-zero if any phase fails:
    on both of #7's routes, float32 on the CUDA-core route, ``bf16_intra``
    on the wgmma route) and the chunked SSD scan against its plain version
    on each route.
-14. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
+17. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
    the card against the same run on the CPU.
-15. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
+18. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
    published widths (random bfloat16 weights from a seed) serve 4 prompts
    of 2,048 tokens and 32 greedy tokens each: the prefill launches #6 9
    (zamba2) and 40 (granite) times, every one on the wgmma route, and #7
@@ -90,8 +114,8 @@ phases, and exits non-zero if any phase fails:
    run takes #7's CUDA-core route).
    Each also profiles one prefill and 8 decode steps (device busy and
    idle shares, device time by kernel kind).
-16. lm timing — #6 at both models' operands and at prefill_32k's length,
-   beside its plain version and ``scaled_dot_product_attention`` (and, at
+19. lm timing — #6 at both models' operands and at prefill_32k's length
+   (also by the launch alone), beside its plain version and ``scaled_dot_product_attention`` (and, at
    granite's operands, the CUDA-core kernel); #7 at zamba2's operands on
    both routes beside its plain version, with the tensor-core source's
    ptxas registers, spills and HGMMA count.
@@ -165,6 +189,17 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_EXTRA = 4, 2048, 32, 128
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_LOGITS_ATOL = 5e-2
 PREFILL_32K = 32_768
+# streaming and serving (the host-join world): fig13's world fed as 10
+# micro-batches with a window of 4 updates; a 20,000-row stream of the same
+# shape for the two community paths and LCS kernels; a 3,000-row stream
+# against the CPU; 1,000 queries of each kind, top 10
+STREAM_N = 200_000
+STREAM_BATCHES = 10
+STREAM_WINDOW = 4
+STREAM_KERNEL_N = 20_000
+STREAM_SMALL_N = 3_000
+SERVE_QUERIES = 1_000
+SERVE_K = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -1525,23 +1560,383 @@ def phase_timing_minhash(torch, minhash_types, minhash_counts):
     plain = lambda: kernel.minhash_plain(types, lengths, ab)  # noqa: E731
     plain_ms = _time_ms(torch, plain, reps=3)
     err = float((run().long() - plain().long()).abs().max())
+    # the launch alone: the raw launcher bound once, ten launches an event
+    # pair (no operand checks, copies or allocation counted)
+    launcher = kernel._launcher()
+    types_c, lengths_c, ab_c = types.contiguous(), lengths.contiguous(), ab.contiguous()
+    out = torch.empty((N, P), dtype=torch.int32, device=types.device)
+    args = (types_c.data_ptr(), lengths_c.data_ptr(), ab_c.data_ptr(), out.data_ptr(), N, L, P,
+            kernel._MINHASH_THREADS, torch.cuda.current_stream(types.device).cuda_stream)
+    launch_ms = _time_ms(torch, lambda: launcher(*args), batch=10)
+    check(torch.equal(out, plain()), "minhash launch alone: output != plain")
     # each input read once, the output written once; the hash is evaluated
     # at the rows' valid positions only
     hashes = int(lengths.clamp(0, L).sum()) * P
     bound, by = _bound_ms(N * (L + 1) * 4 + P * 8 + N * P * 4, hashes * MINHASH_OPS_PER_HASH)
-    log(f"timing minhash_kernel: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-        f"by {by}: {hashes} hashes x {MINHASH_OPS_PER_HASH} int32 operations); library_ms: "
-        "no single PyTorch call computes the wrapped hash and row minimum")
+    log(f"timing minhash_kernel: {ms:.3f} ms with its wrapper, one launch an event pair (the "
+        f"launch alone {launch_ms:.3f} ms, ten an event pair: {bound / launch_ms:.1%} of its "
+        f"bound; plain {plain_ms:.3f} ms, bound {bound:.3f} ms by {by}: {hashes} hashes x "
+        f"{MINHASH_OPS_PER_HASH} int32 operations); library_ms: no single PyTorch call computes "
+        "the wrapped hash and row minimum")
     return [dict(
         name="minhash_kernel", route="cuda",
         source="src/repro_torch/kernels/csrc/minhash.cu",
         replaces="src/repro/kernels/minhash/kernel.py:65",
         launches=minhash_counts["minhash_kernel"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        launch_ms=launch_ms, launch_bound_share=bound / launch_ms,
         path=f"minhash: MinHash engine N={MAIN_N} (keys phase)",
         shape=f"types {list(types.shape)} num_perm {P}",
     )]
 
+
+# ---------------------------------------------------------------------------
+# streaming ingestion and top-k serving over the host-join world
+# ---------------------------------------------------------------------------
+def _stream(dev, forest, impl, components_impl="unionfind", backend="ssh", window=None, **cfg):
+    from repro_torch.api import EngineConfig, StreamingEngine
+
+    cfg.setdefault("community_mode", "components")
+    cfg.setdefault("rho", RHO)
+    return StreamingEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg),
+                           components_impl=components_impl, window=window, device=dev)
+
+
+def _live_ids(stream):
+    """Global ids of the rows alive in a streaming engine's world."""
+    import numpy as np
+
+    span = stream.n - stream._base
+    return np.nonzero(stream._alive_np[:span])[0] + stream._base
+
+
+def _micro_batches(batch, n_batches):
+    from repro_torch.core.types import TrajectoryBatch
+
+    step = batch.num_trajectories // n_batches
+    for u in range(n_batches):
+        s = slice(u * step, (u + 1) * step)
+        yield TrajectoryBatch(places=batch.places[s], lengths=batch.lengths[s],
+                              user_id=batch.user_id[s])
+
+
+def _same_stream_result(got, want, what):
+    """Two streaming results equal: the scored buffer slot by slot, the
+    similar pairs and the communities."""
+    _same_result(got, want, what)
+    check(got.stats["num_candidates"] == want.stats["num_candidates"], f"{what}: candidate count")
+
+
+STREAM_PHASE_KEYS = ("t_expire", "t_keys", "t_ingest", "t_delta_join", "t_score", "t_communities")
+
+
+def _stream_line(tag, u, res):
+    s = res.stats
+    log(f"{tag} update {u}: " + " ".join(f"{k}={s.get(k, 0.0):.3f}s" for k in STREAM_PHASE_KEYS)
+        + f" t_total={s['t_total']:.3f}s world_live={s['world_live']} world_base={s['world_base']} "
+        f"world_capacity={s['world_capacity']} resident_bytes={s['resident_bytes']} "
+        f"num_delta_pairs={s['num_delta_pairs']} num_candidates={s['num_candidates']} "
+        f"num_similar={s['num_similar']} num_expired={s['num_expired']} "
+        f"compactions={s['compactions']} dead_fraction={s['dead_fraction']:.3f}")
+
+
+def _feed(stream, batch, n_batches, *, retire_after=None, ttl_of=None, tag=None, per_update=None):
+    """Feed ``batch`` as ``n_batches`` micro-batches; after update
+    ``retire_after`` retire every 100th live id (1%).  Returns the last
+    result and the ids retired."""
+    retired = []
+    res = None
+    for u, mb in enumerate(_micro_batches(batch, n_batches)):
+        res = stream.update(mb, ttl=ttl_of(u) if ttl_of else None)
+        if per_update is not None:
+            per_update(u, res)
+        if tag is not None:
+            _stream_line(tag, u, res)
+        if u == retire_after:
+            retired = _live_ids(stream)[::100].tolist()
+            check(stream.retire(retired) == len(retired), f"{tag}: retire count")
+    return res, retired
+
+
+def phase_stream_small(torch, dev, n=STREAM_SMALL_N, n_batches=5):
+    """The streaming engine on the card against the same stream on the CPU
+    (plain versions): every update's scored buffer slot by slot, similar
+    pairs and communities, over TTL, a window, an explicit retire and a
+    compaction, per community path, prune, backend and fault injection."""
+    import os
+
+    from repro_torch.data import synthetic_setup
+
+    t0 = time.perf_counter()
+    cpu_batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device="cpu")
+    batch, _ = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    # the prune runs take rho = 5.5, so the bound (betas_sum * min length,
+    # lengths 5-10) prunes the pairs with a row of 5 places
+    prune = dict(score_prune=True, rho=5.5)
+    runs = (  # (tag, backend, card impl, components_impl, extra config, fault injection)
+        ("ssh unionfind fused", "ssh", "fused", "unionfind", {}, False),
+        ("ssh jit kernel prune", "ssh", "kernel", "jit", prune, False),
+        ("ssh cliques fused", "ssh", "fused", "unionfind", dict(community_mode="cliques"), False),
+        ("ssh cliques fused prune", "ssh", "fused", "unionfind",
+         dict(community_mode="cliques", **prune), False),
+        ("minhash unionfind fused", "minhash", "fused", "unionfind", {}, False),
+        ("brp jit kernel", "brp", "kernel", "jit", {}, False),
+        ("ssh unionfind fused REPRO_FAULT_INJECT=1", "ssh", "fused", "unionfind", {}, True),
+    )
+    launches = collections.Counter()
+    for tag, backend, impl, cimpl, cfg, fault in runs:
+        want_stream = _stream("cpu", forest, "wavefront", cimpl, backend, window=3, **cfg)
+        wants = []
+        _feed(want_stream, cpu_batch, n_batches, retire_after=2, ttl_of=lambda u: 2 if u == 1 else None,
+              per_update=lambda u, r: wants.append(r))
+        stream = _stream(dev, forest, impl, cimpl, backend, window=3, **cfg)
+
+        def check_update(u, res, tag=tag, wants=wants):
+            _same_stream_result(res, wants[u], f"stream small {tag} update {u}")
+
+        if fault:
+            os.environ["REPRO_FAULT_INJECT"] = "1"
+        try:
+            (res, _), counts = _counted(lambda: _feed(
+                stream, batch, n_batches, retire_after=2, ttl_of=lambda u: 2 if u == 1 else None,
+                per_update=check_update))
+        finally:
+            os.environ.pop("REPRO_FAULT_INJECT", None)
+        expect_launched(counts, ["fused_gather_score" if impl == "fused" else "lcs_kernel"]
+                        + (["minhash_kernel"] if backend == "minhash" else []))
+        check(res.stats["compactions"] >= 1 and res.stats["retired_total"] > 0,
+              f"stream small {tag}: no compaction ({res.stats['compactions']})")
+        scored = max(w.stats["num_candidates"] for w in wants)
+        similar = max(len(w.similar_pairs) for w in wants)
+        pruned = sum(w.stats.get("num_pruned", 0) for w in wants)
+        check(scored > 0, f"stream small {tag}: nothing scored")
+        check(similar > 0 or backend != "ssh" or cfg, f"stream small {tag}: no similar pairs")
+        check(pruned > 0 or not cfg.get("score_prune"), f"stream small {tag}: nothing pruned")
+        launches.update(counts)
+        log(f"stream small {tag}: N={n} in {n_batches} updates (window 3, ttl 2, retire, "
+            f"{res.stats['compactions']} compactions): card == CPU plain at every update (at most "
+            f"{scored} scored and {similar} similar at once, {pruned} pruned; last update "
+            f"{len(res.communities)} communities); launches {counts}")
+    secs = time.perf_counter() - t0
+    log(f"stream small: {len(runs)} streams in {secs:.1f} s")
+    return dict(launches), secs
+
+
+def _one_shot_over(torch, dev, forest, batch, live, impl="fused"):
+    """A one-shot engine run on the card over the rows ``live`` of
+    ``batch``; its ids map back through ``live``."""
+    from repro_torch.core.types import TrajectoryBatch
+
+    idx = torch.as_tensor(live, device=dev)
+    sub = TrajectoryBatch(places=batch.places[idx], lengths=batch.lengths[idx],
+                          user_id=torch.arange(len(live), dtype=torch.int32, device=dev))
+    return _engine(dev, forest, impl, rho=RHO, community_mode="components").run(sub)
+
+
+def _scored_sorted(sc, ids=None):
+    """(pairs packed as lo << 32 | hi, level_lcs, mss) of a scored buffer's
+    valid slots, sorted by pair; ``ids`` maps local ids to global."""
+    import numpy as np
+
+    from repro_torch.core.types import PAD_ID
+
+    left, right = sc.left.cpu().numpy(), sc.right.cpu().numpy()
+    ok = left != PAD_ID
+    left, right = left[ok].astype(np.int64), right[ok].astype(np.int64)
+    if ids is not None:
+        left, right = ids[left], ids[right]
+    packed = (left << 32) | right
+    order = np.argsort(packed, kind="stable")
+    return packed[order], sc.level_lcs.cpu().numpy()[ok][order], sc.mss.cpu().numpy()[ok][order]
+
+
+def phase_stream(torch, dev, n=STREAM_N, n_batches=STREAM_BATCHES, kernel_n=STREAM_KERNEL_N):
+    """fig13's world fed as 10 micro-batches with a window of 4 updates
+    (compaction from update 6 on, a 1% retire after update 7): the final
+    result equals a one-shot run on the card over the survivors; a 20,000-row
+    stream of the same shape with ("jit", "kernel") equals ("unionfind",
+    "fused")."""
+    import numpy as np
+
+    from repro_torch.data import synthetic_setup
+
+    t0 = time.perf_counter()
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    stream = _stream(dev, forest, "fused", "unionfind", window=STREAM_WINDOW)
+    updates = []
+    t_feed = time.perf_counter()
+    (res, retired), counts = _counted(lambda: _feed(
+        stream, batch, n_batches, retire_after=7, tag=f"stream N={n}",
+        per_update=lambda u, r: updates.append(
+            {k: r.stats.get(k, 0.0) for k in STREAM_PHASE_KEYS + ("t_total", "resident_bytes",
+                                                                   "num_delta_pairs", "world_live")})))
+    feed_s = time.perf_counter() - t_feed
+    expect_launched(counts, ["fused_gather_score"])
+    check(stream.compactions >= 1, f"stream: no compaction ({stream.compactions})")
+    check(len(retired) > 0, "stream: nothing retired")
+    live = _live_ids(stream)
+    check(len(live) == res.stats["world_live"], "stream: live count")
+    want = _one_shot_over(torch, dev, forest, batch, live)
+    check({(int(live[a]), int(live[b])) for a, b in want.similar_pairs} == res.similar_pairs,
+          "stream: similar pairs != the one-shot run over the survivors")
+    check({frozenset(int(live[i]) for i in c) for c in want.communities} == res.communities,
+          "stream: communities != the one-shot run over the survivors")
+    got_p, got_l, got_m = _scored_sorted(res.scored)
+    want_p, want_l, want_m = _scored_sorted(want.scored, live.astype(np.int64))
+    check(np.array_equal(got_p, want_p) and np.array_equal(got_l, want_l)
+          and np.array_equal(got_m, want_m),
+          "stream: scored (pair, level_lcs, mss) set != the one-shot run over the survivors")
+    log(f"stream N={n}: {n_batches} updates in {feed_s:.3f} s, {stream.compactions} compactions, "
+        f"{len(retired)} retired after update 7, {len(live)} survivors; == one-shot over the "
+        f"survivors ({len(got_p)} scored pairs, {len(res.similar_pairs)} similar, "
+        f"{len(res.communities)} communities); launches {counts}")
+    sums = {k: sum(u[k] for u in updates) for k in STREAM_PHASE_KEYS + ("t_total",)}
+    log(f"stream N={n} phase sums over the updates: "
+        + " ".join(f"{k}={v:.3f}s" for k, v in sums.items()))
+
+    kbatch, kforest = synthetic_setup(kernel_n, num_types=NUM_TYPES, seed=0, device=dev)
+    results, kcounts = {}, {}
+    for impl, cimpl in (("kernel", "jit"), ("fused", "unionfind")):
+        s = _stream(dev, kforest, impl, cimpl, window=STREAM_WINDOW)
+        (results[impl], _), kcounts[impl] = _counted(
+            lambda s=s: _feed(s, kbatch, n_batches, retire_after=7))
+        check(s.compactions >= 1, f"stream N={kernel_n} {impl}: no compaction")
+    expect_launched(kcounts["kernel"], ["lcs_kernel"])
+    expect_launched(kcounts["fused"], ["fused_gather_score"])
+    _same_stream_result(results["kernel"], results["fused"], f"stream N={kernel_n} kernel/jit vs fused/unionfind")
+    check(len(results["fused"].similar_pairs) > 0, f"stream N={kernel_n}: no similar pairs")
+    secs = time.perf_counter() - t0
+    log(f"stream N={kernel_n}: (jit, kernel) == (unionfind, fused) ({results['fused'].stats['num_candidates']} "
+        f"scored, {len(results['fused'].similar_pairs)} similar); launches {kcounts}")
+    log(f"stream: phase in {secs:.1f} s")
+    return stream, batch, forest, dict(counts=counts, kernel_counts=kcounts, updates=updates,
+                                       feed_s=feed_s, phase_s=secs)
+
+
+def _brute_hits(torch, stream, world, q_places, q_lengths, rho_min, slice_pairs=1 << 20,
+                block=128):
+    """Whole-live-world brute force: every (query, live row) pair scored by
+    #1 (``fused_score``, the engine's dispatch); returns the (query, global
+    row, mss) of the pairs with mss > ``rho_min``, and how many of the first
+    pairs were re-scored by the plain version (``slice_pairs``)."""
+    import numpy as np
+
+    from repro_torch.core.encoding import encode_codes
+    from repro_torch.core.types import PAD_PLACE
+    from repro_torch.kernels.lcs import fused
+
+    dev = stream.device
+    live = _live_ids(stream)
+    idx = torch.as_tensor(live, device=dev)
+    L = max(world.places.shape[1], q_places.shape[1])
+    pad = lambda p: torch.nn.functional.pad(p, (0, L - p.shape[1]), value=PAD_PLACE)  # noqa: E731
+    w_codes = encode_codes(pad(world.places[idx]), stream.tables)
+    w_len = world.lengths[idx]
+    q_codes = encode_codes(pad(q_places), stream.tables)
+    Q, n = q_codes.shape[0], len(live)
+    hits, rescored = [], 0
+    for q0 in range(0, Q, block):
+        qb = min(block, Q - q0)
+        left = torch.arange(q0, q0 + qb, dtype=torch.int32, device=dev).repeat_interleave(n)
+        right = torch.arange(n, dtype=torch.int32, device=dev).repeat(qb)
+        lvl, mss = fused.fused_score(q_codes, q_lengths, w_codes, w_len, left, right, stream.betas)
+        if rescored < slice_pairs:
+            s = slice(0, slice_pairs - rescored)
+            p_lvl, p_mss = fused.fused_gather_score_plain(q_codes, q_lengths, w_codes, w_len,
+                                                          left[s], right[s], stream.betas)
+            check(torch.equal(p_lvl, lvl[s]) and torch.equal(p_mss, mss[s]),
+                  "brute force: #1 != its plain version on a slice")
+            rescored += p_lvl.shape[0]
+        m = mss > rho_min
+        hits.append((left[m].cpu().numpy(), right[m].cpu().numpy(), mss[m].cpu().numpy()))
+    q = np.concatenate([h[0] for h in hits])
+    row = live[np.concatenate([h[1] for h in hits])].astype(np.int64)
+    return q, row, np.concatenate([h[2] for h in hits]), rescored
+
+
+def _rank_topk(q, row, mss, k_vec, rho_vec):
+    """The brute force's top-k: matches above each query's rho ranked with
+    numpy ``lexsort`` by (mss desc, row asc); [Q, k_max] ids (PAD_ID in
+    empty slots) and mss (-1.0)."""
+    import numpy as np
+
+    from repro_torch.core.types import PAD_ID
+
+    ok = mss > rho_vec[q]
+    q, row, mss = q[ok], row[ok], mss[ok]
+    order = np.lexsort((row, -mss, q))
+    q, row, mss = q[order], row[order], mss[order]
+    Q = k_vec.shape[0]
+    ids = np.full((Q, int(k_vec.max())), PAD_ID, np.int32)
+    out = np.full(ids.shape, -1.0, np.float32)
+    starts = np.searchsorted(q, np.arange(Q))
+    ends = np.searchsorted(q, np.arange(Q), side="right")
+    for i in range(Q):
+        take = min(int(k_vec[i]), int(ends[i] - starts[i]))
+        ids[i, :take] = row[starts[i]:starts[i] + take]
+        out[i, :take] = mss[starts[i]:starts[i] + take]
+    return ids, out
+
+
+def phase_serve(torch, dev, stream, world, n_queries=SERVE_QUERIES, k=SERVE_K):
+    """``QueryEngine`` over the stream phase's final world: 1,000 fresh
+    trajectories and 1,000 live rows, prune off and on, with default and
+    per-query k and rho, against a whole-live-world brute force."""
+    import numpy as np
+
+    from repro_torch.api import QueryEngine
+    from repro_torch.data.synthetic import synthetic_trajectories
+
+    t0 = time.perf_counter()
+    fresh = synthetic_trajectories(n_queries, seed=7, device=dev)
+    live = _live_ids(stream)
+    pick = torch.as_tensor(live[np.linspace(0, len(live) - 1, n_queries).astype(np.int64)], device=dev)
+    rng = np.random.default_rng(3)
+    k_vec = rng.choice([0, 1, 5, 10, 40], size=n_queries).astype(np.int32)
+    rho_vec = rng.choice([2.0, 2.5, 3.0], size=n_queries).astype(np.float32)
+    default = (np.full(n_queries, k, np.int32), np.full(n_queries, RHO, np.float32))
+    figures, launches = [], collections.Counter()
+    for qname, (qp, ql) in (("fresh", (fresh.places, fresh.lengths)),
+                            ("live", (world.places[pick], world.lengths[pick]))):
+        from repro_torch.core.types import TrajectoryBatch
+
+        qbatch = TrajectoryBatch(places=qp, lengths=ql,
+                                 user_id=torch.arange(n_queries, dtype=torch.int32, device=dev))
+        hq, hrow, hmss, rescored = _brute_hits(torch, stream, world, qp, ql,
+                                                min(RHO, float(rho_vec.min())))
+        for kname, (kv, rv) in (("k=10", default), ("per-query k, rho", (k_vec, rho_vec))):
+            want_ids, want_mss = _rank_topk(hq, hrow, hmss, kv, rv)
+            got = {}
+            for prune in (False, True):
+                qe = QueryEngine(stream, k=k, serve_prune=prune)
+                kw = {} if kname == "k=10" else dict(k=kv, rho=rv)
+                tq = time.perf_counter()
+                res, counts = _counted(lambda: qe.query(qbatch, **kw))
+                wall = time.perf_counter() - tq
+                expect_launched(counts, ["fused_gather_score"])
+                launches.update(counts)
+                check(np.array_equal(res.match_ids, want_ids) and np.array_equal(res.mss, want_mss),
+                      f"serve {qname} {kname} prune={prune}: top-k != the brute force")
+                got[prune] = res
+                s = res.stats
+                figures.append(dict(queries=qname, k=kname, prune=prune, wall_s=wall,
+                                    qps=n_queries / wall, candidates=s["candidates"],
+                                    rounds_run=s["rounds_run"], rounds_skipped=s["rounds_skipped"],
+                                    cells_skipped=s["cells_skipped"]))
+                log(f"serve {qname} {kname} prune={prune}: {n_queries} queries in {wall:.3f} s = "
+                    f"{n_queries / wall:.1f} queries/s; candidates {s['candidates']} "
+                    f"(probe examined {s['probe_examined']}), rounds_run {s['rounds_run']}, "
+                    f"rounds_skipped {s['rounds_skipped']}, cells_skipped {s['cells_skipped']}; "
+                    f"{int((res.match_ids != 2**31 - 1).sum())} matches == the brute force "
+                    f"({len(hq)} brute-force pairs above {min(RHO, float(rho_vec.min()))}, {rescored} "
+                    f"re-scored by the plain version); "
+                    f"launches {counts}")
+            check(np.array_equal(got[False].match_ids, got[True].match_ids)
+                  and np.array_equal(got[False].mss, got[True].mss),
+                  f"serve {qname} {kname}: prune on != prune off")
+    secs = time.perf_counter() - t0
+    log(f"serve: phase in {secs:.1f} s over a world of {len(live)} live rows")
+    return dict(launches), figures, secs
 
 # ---------------------------------------------------------------------------
 # LM serving: flash attention (#6) and the SSD intra-chunk step (#7)
@@ -1998,8 +2393,15 @@ def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
     flops = 4 * D * pairs  # q.k and p.v, 2 flops a multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    # the launch alone: the route's kernel run by name on operands it reads
+    # in place, ten launches an event pair
+    route = attn.route(q.dtype, D)
+    ready = attn.tma_ready if route == "wgmma" else (lambda t: t.stride(-1) == 1)
+    ops = [t if ready(t) else t.contiguous() for t in (q, k, v)]
+    launch_ms = _time_ms(torch, lambda: attn.launch(route, *ops, causal=causal), batch=10)
     row = dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-               bound_by=by, library_ms=library_ms, path=path, kernel_route=attn.route(q.dtype, D),
+               bound_by=by, library_ms=library_ms, path=path, kernel_route=route,
+               launch_ms=launch_ms, launch_bound_share=bound / launch_ms,
                tflops=flops / ms / 1e9,
                shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}"
                      f" causal={causal}")
@@ -2011,8 +2413,9 @@ def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
         extra = (f"; the CUDA-core kernel {row['cuda_cores_ms']:.3f} ms "
                  f"({row['cuda_cores_ms'] / ms:.1f}x the {row['kernel_route']} kernel)")
     log(f"timing flash_attention_kernel [{path}] q {list(q.shape)} k {list(k.shape)}: {ms:.3f} ms "
-        f"on the {row['kernel_route']} route (plain {plain_ms:.3f} ms, sdpa {library_ms:.3f} ms = "
-        f"{ms / library_ms:.2f}x, bound {bound:.4f} ms by {by}: {flops:.3g} flops at 989 TFLOP/s "
+        f"on the {row['kernel_route']} route with its wrapper, one launch an event pair (the launch "
+        f"alone {launch_ms:.3f} ms, ten an event pair: {bound / launch_ms:.1%} of its bound; plain "
+        f"{plain_ms:.3f} ms, sdpa {library_ms:.3f} ms = {ms / library_ms:.2f}x, bound {bound:.4f} ms by {by}: {flops:.3g} flops at 989 TFLOP/s "
         f"bf16, {nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.2f} TFLOP/s; max |kernel - plain| "
         f"{err:.3g}, |kernel - sdpa| {lib_err:.3g}{extra}")
     return row
@@ -2172,6 +2575,19 @@ def main() -> int:
     del minhash_types
     phase_brp_scale(torch, dev)
     phase_centralized_scale(torch, dev)
+    small_launches, _ = phase_stream_small(torch, dev)
+    stream, world, _, stream_figures = phase_stream(torch, dev)
+    serve_launches, serve_figures, _ = phase_serve(torch, dev, stream, world)
+    del stream, world
+    torch.cuda.empty_cache()
+    new_paths = {"stream small": small_launches, "stream": stream_figures["counts"],
+                 "stream kernel/jit": stream_figures["kernel_counts"]["kernel"],
+                 "stream fused/unionfind": stream_figures["kernel_counts"]["fused"],
+                 "serve": serve_launches}
+    for e in entries:
+        if e["name"] in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
+            e["launches_streaming_serving"] = {path: c.get(e["name"], 0) for path, c in new_paths.items()}
+    log(json.dumps({"stream_updates": stream_figures["updates"], "serve": serve_figures}))
     phase_lm_kernels(torch, dev)
     phase_lm_small(torch, dev)
     zamba = phase_lm_full(torch, dev, "zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54})

@@ -73,6 +73,43 @@ class CapacityPlanner:
             cand = build(capacity)
         return cand, capacity
 
+    def plan_stream_join(self, *args, **kwargs):
+        """The JAX package's capacity plan for the in-mesh streaming delta
+        join (``delta_join="device"``); not ported, so it raises
+        :class:`NotPortedError`."""
+        raise NotPortedError("CapacityPlanner.plan_stream_join (delta_join='device')")
+
+    def plan_query(
+        self,
+        num_queries: int,
+        k_max: int,
+        *,
+        n_shards: int,
+        cap_local: int,
+        world_L: int,
+        q_len_max: int,
+        cand_total=None,
+        keys_flat=None,
+        stats=None,
+        floor_pow2: int = 2,
+    ):
+        """Exact capacity plan for one query-serving micro-batch.
+
+        Delegates to :func:`repro_torch.api.serving.plan_query_capacities`:
+        the query, top-k and candidate buffers are sized from the exact
+        candidate count of the host ``BucketIndex`` probe (``cand_total``),
+        or from ``keys_flat``/``stats`` (a ``StreamJoinStats`` mirror), and
+        quantize to powers of two; :class:`QueryEngine` keeps them sticky
+        across micro-batches.
+        """
+        from repro_torch.api.serving import plan_query_capacities
+
+        return plan_query_capacities(
+            num_queries, k_max, n_shards=n_shards, cap_local=cap_local,
+            world_L=world_L, q_len_max=q_len_max, cand_total=cand_total,
+            keys_flat=keys_flat, stats=stats, floor_pow2=floor_pow2,
+        )
+
     def plan_tuning(self, pairs: int, levels: int, length: int):
         """Tuned LCS kernel parameters for a score stage of this shape.
 

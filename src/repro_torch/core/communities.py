@@ -11,7 +11,7 @@ QA2 = |pairs_dis ∩ pairs_cen| / |pairs_cen|                      (Eq. 3)
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
@@ -152,6 +152,44 @@ class UnionFind:
             roots = np.nonzero(counts)[0]
             self._size[roots] = counts[roots]
         self.num_nodes = n
+
+
+def components_after_deletion(
+    labels: np.ndarray,
+    dead: Sequence[int],
+    surviving_edges: Iterable[tuple[int, int]],
+) -> np.ndarray:
+    """Community *un*-merging: re-label after deleting the ``dead`` nodes.
+
+    Deletion can SPLIT a component (expiring the bridge node of a path),
+    which no incremental label update discovers.  Only the components that
+    CONTAIN a dead node ("touched") are recomputed, from the surviving
+    edges restricted to them; untouched components keep their labels.
+
+    labels:          int [n] current min-member labels (nodes 0..n-1).
+    dead:            node ids being deleted (they become self-labeled
+                     singletons; the caller has already dropped every edge
+                     referencing them).
+    surviving_edges: the post-deletion edge set (edges inside untouched
+                     components are skipped).
+
+    Returns the new int32 [n] min-member labels, equal to a cold
+    union-find fixpoint over ``surviving_edges``.
+    """
+    labels = np.asarray(labels, np.int64).copy()
+    dead = np.asarray(sorted(set(int(x) for x in dead)), np.int64)
+    if dead.size == 0:
+        return labels.astype(np.int32)
+    touched = np.unique(labels[dead])
+    idx = np.nonzero(np.isin(labels, touched))[0]
+    labels[idx] = idx  # touched components dissolve to singletons...
+    uf = UnionFind()
+    uf.reset_from_labels(labels)
+    touched_nodes = set(idx.tolist())
+    for a, b in surviving_edges:  # ...and re-form from surviving edges
+        if int(a) in touched_nodes or int(b) in touched_nodes:
+            uf.union(int(a), int(b))
+    return uf.labels()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's Hopper kernels against their plain PyTorch versions, on the card.
+"""The port's Hopper kernels against their plain PyTorch versions, on the card
+(and a short stream and a query batch against the same ones on the CPU).
 
 Every test here launches a CUDA kernel and is marked ``cuda``: without a
 CUDA device it skips.  This file imports neither ``jax`` nor ``repro``, so
@@ -640,3 +641,79 @@ def test_reduced_lm_served_on_the_card_equals_cpu(cuda, arch):
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# streaming ingestion and top-k serving on the card against the CPU
+# ---------------------------------------------------------------------------
+STREAM_WORLD = dict(num_types=8, classes_per_type=3, num_places=80, seed=4)
+
+
+def _streams(cuda, impl, components_impl, backend="ssh", n=600):
+    """The same short stream (5 micro-batches, window 3, a TTL of 2 on batch
+    1, a retire after update 2) on the card with ``impl`` and on the CPU
+    with the plain wavefront.  Returns {device: (engine, [result per
+    update])}."""
+    from repro_torch.api import StreamingEngine
+    from repro_torch.core.types import TrajectoryBatch
+
+    cfg = dict(rho=1.5, community_mode="components", backend=backend)
+    out = {}
+    for dev, lcs_impl in ((cuda, impl), ("cpu", "wavefront")):
+        batch, forest = synthetic_setup(n, device=dev, **STREAM_WORLD)
+        engine = StreamingEngine(forest, EngineConfig(lcs_impl=lcs_impl, **cfg),
+                                 components_impl=components_impl, window=3, device=dev)
+        step, results = n // 5, []
+        for u in range(5):
+            s = slice(u * step, (u + 1) * step)
+            mb = TrajectoryBatch(places=batch.places[s], lengths=batch.lengths[s],
+                                 user_id=batch.user_id[s])
+            results.append(engine.update(mb, ttl=2 if u == 1 else None))
+            if u == 2:
+                engine.retire(range(0, 3 * step, 7))
+        out[dev] = (engine, results)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,components_impl,backend", [
+    ("fused", "unionfind", "ssh"), ("kernel", "jit", "ssh"), ("fused", "jit", "minhash"),
+    ("kernel", "unionfind", "brp"),
+])
+def test_stream_on_the_card_equals_cpu(cuda, impl, components_impl, backend):
+    runs = _streams(cuda, impl, components_impl, backend)
+    (card, got), (_, want) = runs[cuda], runs["cpu"]
+    for u, (g, w) in enumerate(zip(got, want)):
+        for field in ("left", "right", "level_lcs", "mss"):
+            assert getattr(g.scored, field).device.type == "cuda"
+            assert torch.equal(getattr(g.scored, field).cpu(), getattr(w.scored, field)), (u, field)
+        assert g.similar_pairs == w.similar_pairs, u
+        assert g.communities == w.communities, u
+    assert card.compactions >= 1 and max(len(w.similar_pairs) for w in want) > 0
+    kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
+    assert kern.launches > 0
+    assert (tmhk.minhash_kernel.launches > 0) == (backend == "minhash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fused", "kernel"])
+@pytest.mark.parametrize("serve_prune", [False, True])
+def test_query_batch_on_the_card_equals_cpu(cuda, impl, serve_prune):
+    from repro_torch.api import QueryEngine
+
+    runs = _streams(cuda, impl, "unionfind")
+    rng = np.random.default_rng(9)
+    k = rng.integers(0, 8, size=40).astype(np.int32)
+    rho = rng.choice([0.5, 1.5, 2.5], size=40).astype(np.float32)
+    res = {}
+    for dev in (cuda, "cpu"):
+        queries, _ = synthetic_setup(40, device=dev, **{**STREAM_WORLD, "seed": 11})
+        qe = QueryEngine(runs[dev][0], k=5, serve_prune=serve_prune)
+        res[dev] = (qe.query(queries), qe.query(queries, k=k, rho=rho))
+    for got, want in zip(res[cuda], res["cpu"]):
+        assert np.array_equal(got.match_ids, want.match_ids)
+        assert np.array_equal(got.mss, want.mss)
+        assert got.stats["candidates"] == want.stats["candidates"] > 0
+    assert (got.match_ids != 2**31 - 1).any()
+    kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
+    assert kern.launches > 0
