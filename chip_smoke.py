@@ -94,7 +94,27 @@ phases, and exits non-zero if any phase fails:
    ranked with numpy ``lexsort`` by (mss desc, row asc); a 1M-pair slice
    re-scored by the plain version); prune on equals prune off; queries per
    second, rounds and cells skipped are logged.
-16. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
+16. stream device small — the stream small phase's streams (minus the
+   cliques ones) with ``ExecutionPlan(delta_join="device")``: the join, its
+   dedup and the slab on the card; at every update equal to the same
+   device-join stream on the CPU and to the card's host-join stream (the
+   scored buffer slot by slot, similar pairs, communities, pairs examined
+   less the slab's tombstones), with no pair row crossing from the host;
+   "unionfind" and "jit", ``score_prune``, "ssh", "minhash" (#5) and "brp",
+   "fused" (#1) and "kernel" (#2), and ``REPRO_FAULT_INJECT=1`` with at
+   least one join retry.
+17. stream device — the stream phase's world and schedule with the device
+   join: every update examines the host join's pairs plus the slab's
+   tombstones, and the final update equals the host join's result (scored
+   buffer slot by slot, similar pairs, communities) and the one-shot run
+   over the survivors.  Each update logs its phase seconds, the join's
+   split between the host mirror (planning and commit) and the join
+   function (CUDA events), the slab, the resident bytes, the bytes and key
+   rows shipped, the mirror's keys and the build counts.
+18. serve device — the serve phase's query batches over that device-join
+   world: every answer equals the host-join world's, and the host index is
+   never probed; queries per second and probe counts are logged.
+19. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
    64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
    bfloat16 on the wgmma route and again on the CUDA-core route; SSD
@@ -102,9 +122,9 @@ phases, and exits non-zero if any phase fails:
    on both of #7's routes, float32 on the CUDA-core route, ``bf16_intra``
    on the wgmma route) and the chunked SSD scan against its plain version
    on each route.
-17. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
+20. lm small — reduced granite-3-8b, mamba2-1.3b and zamba2-2.7b served on
    the card against the same run on the CPU.
-18. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
+21. lm zamba2 / granite full — zamba2-2.7b and granite-3-8b at their full
    published widths (random bfloat16 weights from a seed) serve 4 prompts
    of 2,048 tokens and 32 greedy tokens each: the prefill launches #6 9
    (zamba2) and 40 (granite) times, every one on the wgmma route, and #7
@@ -114,7 +134,7 @@ phases, and exits non-zero if any phase fails:
    run takes #7's CUDA-core route).
    Each also profiles one prefill and 8 decode steps (device busy and
    idle shares, device time by kernel kind).
-19. lm timing — #6 at both models' operands and at prefill_32k's length
+22. lm timing — #6 at both models' operands and at prefill_32k's length
    (also by the launch alone), beside its plain version and ``scaled_dot_product_attention`` (and, at
    granite's operands, the CUDA-core kernel); #7 at zamba2's operands on
    both routes beside its plain version, with the tensor-core source's
@@ -189,10 +209,10 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_EXTRA = 4, 2048, 32, 128
 LM_MAX_LEN = LM_PROMPT + LM_GEN
 LM_LOGITS_ATOL = 5e-2
 PREFILL_32K = 32_768
-# streaming and serving (the host-join world): fig13's world fed as 10
-# micro-batches with a window of 4 updates; a 20,000-row stream of the same
-# shape for the two community paths and LCS kernels; a 3,000-row stream
-# against the CPU; 1,000 queries of each kind, top 10
+# streaming and serving (on the host join, then on the device join): fig13's
+# world fed as 10 micro-batches with a window of 4 updates; a 20,000-row
+# stream of the same shape for the two community paths and LCS kernels; a
+# 3,000-row stream against the CPU; 1,000 queries of each kind, top 10
 STREAM_N = 200_000
 STREAM_BATCHES = 10
 STREAM_WINDOW = 4
@@ -1593,12 +1613,14 @@ def phase_timing_minhash(torch, minhash_types, minhash_counts):
 # ---------------------------------------------------------------------------
 # streaming ingestion and top-k serving over the host-join world
 # ---------------------------------------------------------------------------
-def _stream(dev, forest, impl, components_impl="unionfind", backend="ssh", window=None, **cfg):
-    from repro_torch.api import EngineConfig, StreamingEngine
+def _stream(dev, forest, impl, components_impl="unionfind", backend="ssh", window=None,
+            delta_join="host", **cfg):
+    from repro_torch.api import EngineConfig, ExecutionPlan, StreamingEngine
 
     cfg.setdefault("community_mode", "components")
     cfg.setdefault("rho", RHO)
     return StreamingEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg),
+                           ExecutionPlan(delta_join=delta_join),
                            components_impl=components_impl, window=window, device=dev)
 
 
@@ -1628,6 +1650,8 @@ def _same_stream_result(got, want, what):
 
 
 STREAM_PHASE_KEYS = ("t_expire", "t_keys", "t_ingest", "t_delta_join", "t_score", "t_communities")
+STREAM_UPDATE_KEYS = ("t_total", "resident_bytes", "num_delta_pairs", "world_live",
+                      "pairs_examined", "num_candidates", "driver_bytes_in")
 
 
 def _stream_line(tag, u, res):
@@ -1768,8 +1792,7 @@ def phase_stream(torch, dev, n=STREAM_N, n_batches=STREAM_BATCHES, kernel_n=STRE
     (res, retired), counts = _counted(lambda: _feed(
         stream, batch, n_batches, retire_after=7, tag=f"stream N={n}",
         per_update=lambda u, r: updates.append(
-            {k: r.stats.get(k, 0.0) for k in STREAM_PHASE_KEYS + ("t_total", "resident_bytes",
-                                                                   "num_delta_pairs", "world_live")})))
+            {k: r.stats.get(k, 0.0) for k in STREAM_PHASE_KEYS + STREAM_UPDATE_KEYS})))
     feed_s = time.perf_counter() - t_feed
     expect_launched(counts, ["fused_gather_score"])
     check(stream.compactions >= 1, f"stream: no compaction ({stream.compactions})")
@@ -1810,7 +1833,8 @@ def phase_stream(torch, dev, n=STREAM_N, n_batches=STREAM_BATCHES, kernel_n=STRE
         f"scored, {len(results['fused'].similar_pairs)} similar); launches {kcounts}")
     log(f"stream: phase in {secs:.1f} s")
     return stream, batch, forest, dict(counts=counts, kernel_counts=kcounts, updates=updates,
-                                       feed_s=feed_s, phase_s=secs)
+                                       feed_s=feed_s, phase_s=secs, final=res, one_shot=want,
+                                       live=live, retired=retired)
 
 
 def _brute_hits(torch, stream, world, q_places, q_lengths, rho_min, slice_pairs=1 << 20,
@@ -1895,7 +1919,7 @@ def phase_serve(torch, dev, stream, world, n_queries=SERVE_QUERIES, k=SERVE_K):
     k_vec = rng.choice([0, 1, 5, 10, 40], size=n_queries).astype(np.int32)
     rho_vec = rng.choice([2.0, 2.5, 3.0], size=n_queries).astype(np.float32)
     default = (np.full(n_queries, k, np.int32), np.full(n_queries, RHO, np.float32))
-    figures, launches = [], collections.Counter()
+    figures, launches, cases = [], collections.Counter(), []
     for qname, (qp, ql) in (("fresh", (fresh.places, fresh.lengths)),
                             ("live", (world.places[pick], world.lengths[pick]))):
         from repro_torch.core.types import TrajectoryBatch
@@ -1918,6 +1942,7 @@ def phase_serve(torch, dev, stream, world, n_queries=SERVE_QUERIES, k=SERVE_K):
                 check(np.array_equal(res.match_ids, want_ids) and np.array_equal(res.mss, want_mss),
                       f"serve {qname} {kname} prune={prune}: top-k != the brute force")
                 got[prune] = res
+                cases.append((qname, kname, prune, qbatch, kw, res))
                 s = res.stats
                 figures.append(dict(queries=qname, k=kname, prune=prune, wall_s=wall,
                                     qps=n_queries / wall, candidates=s["candidates"],
@@ -1936,7 +1961,249 @@ def phase_serve(torch, dev, stream, world, n_queries=SERVE_QUERIES, k=SERVE_K):
                   f"serve {qname} {kname}: prune on != prune off")
     secs = time.perf_counter() - t0
     log(f"serve: phase in {secs:.1f} s over a world of {len(live)} live rows")
+    return dict(launches), figures, secs, cases
+
+# ---------------------------------------------------------------------------
+# the device-resident join (delta_join="device") and serving over its slab
+# ---------------------------------------------------------------------------
+def _tombstones_examined(stream, mb):
+    """Slab tombstones the device join examined for micro-batch ``mb`` (just
+    ingested): each of its rows' keys meets every resident tombstone of that
+    key, counted from the join's count mirror.  The host join drops a
+    retired row from its buckets at once, so its ``pairs_examined`` is the
+    device join's less these until a compaction reclaims them."""
+    import numpy as np
+
+    from repro_torch.core.device_index import flat_row_keys
+
+    dead = stream._join_stats.dead_counts
+    if not dead or not mb.num_trajectories:
+        return 0
+    k_flat, _ = flat_row_keys(stream._new_row_keys(mb.places.cpu().numpy(), mb.lengths.cpu().numpy()))
+    dk = np.fromiter(dead.keys(), np.int64, len(dead))
+    dc = np.fromiter(dead.values(), np.int64, len(dead))
+    order = np.argsort(dk)
+    dk, dc = dk[order], dc[order]
+    idx = np.minimum(np.searchsorted(dk, k_flat), len(dk) - 1)
+    hit = dk[idx] == k_flat
+    return int(dc[idx[hit]].sum())
+
+
+def _same_device_update(got, want, what, tombstones=0):
+    """A device-join update equals ``want`` (another stream of the same
+    rows): the scored buffer slot by slot, similar pairs, communities, and
+    pairs examined (less the ``tombstones`` examined, where ``want`` is a
+    host join), and no pair crossed from the host."""
+    _same_stream_result(got, want, what)
+    check(got.stats["pairs_examined"] == want.stats["pairs_examined"] + tombstones,
+          f"{what}: pairs examined {got.stats['pairs_examined']} != {want.stats['pairs_examined']} "
+          f"+ {tombstones} tombstones")
+    check(got.stats["driver_pair_rows"] == 0, f"{what}: {got.stats['driver_pair_rows']} pair rows "
+          "crossed from the host")
+
+
+def phase_stream_device_small(torch, dev, n=STREAM_SMALL_N, n_batches=5):
+    """The stream small phase's streams with ``delta_join="device"``: on the
+    card against the same device-join stream on the CPU (plain versions)
+    and against the card's host-join stream, at every update."""
+    import os
+
+    from repro_torch.data import synthetic_setup
+
+    t0 = time.perf_counter()
+    cpu_batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device="cpu")
+    batch, _ = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    prune = dict(score_prune=True, rho=5.5)
+    runs = (  # (tag, backend, card impl, components_impl, extra config, fault injection)
+        ("ssh unionfind fused", "ssh", "fused", "unionfind", {}, False),
+        ("ssh jit kernel prune", "ssh", "kernel", "jit", prune, False),
+        ("minhash unionfind fused prune", "minhash", "fused", "unionfind", prune, False),
+        ("brp jit kernel", "brp", "kernel", "jit", {}, False),
+        ("ssh unionfind fused REPRO_FAULT_INJECT=1", "ssh", "fused", "unionfind", {}, True),
+    )
+    feed = dict(retire_after=2, ttl_of=lambda u: 2 if u == 1 else None)
+    launches = collections.Counter()
+    for tag, backend, impl, cimpl, cfg, fault in runs:
+        if fault:
+            os.environ["REPRO_FAULT_INJECT"] = "1"
+        try:
+            wants, hosts, attempts, tombs = [], [], [], []
+            _feed(_stream("cpu", forest, "wavefront", cimpl, backend, window=3, delta_join="device",
+                          **cfg), cpu_batch, n_batches, per_update=lambda u, r: wants.append(r), **feed)
+            _feed(_stream(dev, forest, impl, cimpl, backend, window=3, **cfg), batch, n_batches,
+                  per_update=lambda u, r: hosts.append(r), **feed)
+            stream = _stream(dev, forest, impl, cimpl, backend, window=3, delta_join="device", **cfg)
+
+            mbs = list(_micro_batches(batch, n_batches))
+
+            def check_update(u, res, tag=tag, stream=stream, mbs=mbs):
+                _same_device_update(res, wants[u], f"stream device small {tag} update {u} (vs CPU)")
+                tombs.append(_tombstones_examined(stream, mbs[u]))
+                _same_device_update(res, hosts[u], f"stream device small {tag} update {u} (vs host join)",
+                                    tombs[-1])
+                attempts.append(stream.join_timing["attempts"])
+
+            (res, _), counts = _counted(lambda: _feed(stream, batch, n_batches,
+                                                      per_update=check_update, **feed))
+        finally:
+            os.environ.pop("REPRO_FAULT_INJECT", None)
+        expect_launched(counts, ["fused_gather_score" if impl == "fused" else "lcs_kernel"]
+                        + (["minhash_kernel"] if backend == "minhash" else []))
+        check(res.stats["compactions"] >= 1 and res.stats["retired_total"] > 0,
+              f"stream device small {tag}: no compaction ({res.stats['compactions']})")
+        check(max(w.stats["num_candidates"] for w in wants) > 0, f"stream device small {tag}: nothing scored")
+        pruned = sum(w.stats.get("num_pruned", 0) for w in wants)
+        check(pruned > 0 or not cfg.get("score_prune"), f"stream device small {tag}: nothing pruned")
+        retries = sum(a - 1 for a in attempts if a)
+        check(retries > 0 or not fault, f"stream device small {tag}: no join retry fired")
+        launches.update(counts)
+        log(f"stream device small {tag}: N={n} in {n_batches} updates: card == CPU device join == card "
+            f"host join at every update ({pruned} pruned, {retries} join retries, {sum(tombs)} "
+            f"tombstones examined, slab "
+            f"{stream._slab_cap} slots, {res.stats['compactions']} compactions); launches {counts}")
+    secs = time.perf_counter() - t0
+    log(f"stream device small: {len(runs)} streams in {secs:.1f} s")
+    return dict(launches), secs
+
+
+STREAM_DEVICE_KEYS = ("world_capacity", "resident_bytes", "driver_bytes_in", "driver_key_rows",
+                      "driver_mirror_keys", "join_traces", "score_traces", "join_pair_cap",
+                      "score_pair_cap", "pairs_examined", "num_delta_pairs")
+
+
+def phase_stream_device(torch, dev, batch, forest, host, n_batches=STREAM_BATCHES):
+    """The stream phase's world and schedule with ``delta_join="device"``:
+    every update examines what the host join's did, and the final update
+    equals the host join's result and the one-shot run over the survivors.
+    Logs each update's phase seconds, the join's split between the host
+    mirror (planning and commit) and the join function (CUDA events), the
+    slab and the resident bytes."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    stream = _stream(dev, forest, "fused", "unionfind", window=STREAM_WINDOW, delta_join="device")
+    updates = []
+    mbs = list(_micro_batches(batch, n_batches))
+    # t_score's host part: copying the scored slots back and ordering them
+    # (timed after a sync, so the score function's card work is not in it)
+    collect = {"s": 0.0}
+    real_collect = stream._collect_scored
+
+    def timed_collect(out):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = real_collect(out)
+        collect["s"] += time.perf_counter() - t
+        return got
+
+    stream._collect_scored = timed_collect
+
+    def per_update(u, r):
+        s = r.stats
+        check(s["driver_pair_rows"] == 0, f"stream device update {u}: pair rows crossed from the host")
+        tombs = _tombstones_examined(stream, mbs[u])
+        check(s["pairs_examined"] == host["updates"][u]["pairs_examined"] + tombs,
+              f"stream device update {u}: pairs examined {s['pairs_examined']} != the host join's "
+              f"{host['updates'][u]['pairs_examined']} + {tombs} tombstones")
+        check(s["num_candidates"] == host["updates"][u]["num_candidates"],
+              f"stream device update {u}: scored count != the host join's")
+        row = {k: s.get(k, 0.0) for k in STREAM_PHASE_KEYS + ("t_total",) + STREAM_DEVICE_KEYS}
+        row.update(tombstones_examined=tombs, host_pairs_examined=host["updates"][u]["pairs_examined"],
+                   slab_cap=stream._slab_cap, mirror_s=stream.join_timing["mirror_s"],
+                   join_program_ms=stream.join_timing["program_ms"],
+                   join_attempts=stream.join_timing["attempts"], collect_s=collect["s"])
+        collect["s"] = 0.0
+        updates.append(row)
+        _stream_line(f"stream device N={batch.num_trajectories}", u, r)
+        log(f"stream device update {u}: delta_join split: host mirror {row['mirror_s']:.3f} s, join "
+            f"function {row['join_program_ms']:.3f} ms ({row['join_attempts']} runs); slab "
+            f"{row['slab_cap']} slots, t_score's host collect {row['collect_s']:.3f} s, pairs_examined {s['pairs_examined']} (host join "
+            f"{row['host_pairs_examined']} + {tombs} tombstones), resident_bytes "
+            f"{s['resident_bytes']}, driver_bytes_in "
+            f"{s['driver_bytes_in']}, driver_key_rows {s['driver_key_rows']}, driver_mirror_keys "
+            f"{s['driver_mirror_keys']}, join_traces {s['join_traces']}, score_traces "
+            f"{s['score_traces']}, join_pair_cap {s['join_pair_cap']}, score_pair_cap "
+            f"{s['score_pair_cap']}")
+
+    t_feed = time.perf_counter()
+    (res, retired), counts = _counted(lambda: _feed(stream, batch, n_batches, retire_after=7,
+                                                    per_update=per_update))
+    feed_s = time.perf_counter() - t_feed
+    expect_launched(counts, ["fused_gather_score"])
+    check(retired == host["retired"], "stream device: retired other ids than the host join")
+    check(stream.compactions >= 1, "stream device: no compaction")
+    _same_stream_result(res, host["final"], "stream device final update vs the host join")
+    live = host["live"]
+    check(np.array_equal(_live_ids(stream), live), "stream device: survivors != the host join's")
+    want = host["one_shot"]
+    check({(int(live[a]), int(live[b])) for a, b in want.similar_pairs} == res.similar_pairs,
+          "stream device: similar pairs != the one-shot run over the survivors")
+    check({frozenset(int(live[i]) for i in c) for c in want.communities} == res.communities,
+          "stream device: communities != the one-shot run over the survivors")
+    got_p, got_l, got_m = _scored_sorted(res.scored)
+    want_p, want_l, want_m = _scored_sorted(want.scored, live.astype(np.int64))
+    check(np.array_equal(got_p, want_p) and np.array_equal(got_l, want_l)
+          and np.array_equal(got_m, want_m),
+          "stream device: scored (pair, level_lcs, mss) set != the one-shot run over the survivors")
+    check(stream._index.num_keys_inserted == 0, "stream device: the host BucketIndex was used")
+    sums = {k: sum(u[k] for u in updates)
+            for k in STREAM_PHASE_KEYS + ("t_total", "mirror_s", "collect_s")}
+    sums["join_program_s"] = sum(u["join_program_ms"] for u in updates) / 1e3
+    host_sums = {k: sum(u[k] for u in host["updates"]) for k in STREAM_PHASE_KEYS + ("t_total",)}
+    secs = time.perf_counter() - t0
+    log(f"stream device N={batch.num_trajectories}: {n_batches} updates in {feed_s:.3f} s (host join "
+        f"{host['feed_s']:.3f} s), {stream.compactions} compactions, {len(retired)} retired; final "
+        f"update == the host join's (scored slot by slot, {len(res.similar_pairs)} similar, "
+        f"{len(res.communities)} communities) == the one-shot run over the {len(live)} survivors; "
+        f"launches {counts}")
+    log("stream device phase sums: " + " ".join(f"{k}={v:.3f}s" for k, v in sums.items()))
+    log("stream host phase sums: " + " ".join(f"{k}={v:.3f}s" for k, v in host_sums.items()))
+    log(f"stream device: phase in {secs:.1f} s")
+    return stream, dict(counts=counts, updates=updates, feed_s=feed_s, phase_s=secs)
+
+
+def phase_serve_device(torch, dev, stream, cases):
+    """The serve phase's query batches over the device-join world: every
+    answer equals the host-join world's, and the host index is never
+    probed."""
+    import numpy as np
+
+    from repro_torch.api import QueryEngine
+    from repro_torch.core import stream_index
+
+    t0 = time.perf_counter()
+    check(stream._index.num_keys_inserted == 0, "serve device: the host index holds entries")
+    probes = []
+    real = stream_index.BucketIndex.probe
+    stream_index.BucketIndex.probe = lambda self, *a, **kw: (probes.append(1), real(self, *a, **kw))[1]
+    figures, launches = [], collections.Counter()
+    try:
+        for qname, kname, prune, qbatch, kw, want in cases:
+            qe = QueryEngine(stream, k=SERVE_K, serve_prune=prune)
+            tq = time.perf_counter()
+            res, counts = _counted(lambda: qe.query(qbatch, **kw))
+            wall = time.perf_counter() - tq
+            expect_launched(counts, ["fused_gather_score"])
+            launches.update(counts)
+            check(np.array_equal(res.match_ids, want.match_ids) and np.array_equal(res.mss, want.mss),
+                  f"serve device {qname} {kname} prune={prune}: top-k != the host join's")
+            n_q = len(res.match_ids)
+            s = res.stats
+            figures.append(dict(queries=qname, k=kname, prune=prune, wall_s=wall, qps=n_q / wall,
+                                candidates=s["candidates"], probe_examined=s["probe_examined"],
+                                host_candidates=want.stats["candidates"]))
+            log(f"serve device {qname} {kname} prune={prune}: {n_q} queries in {wall:.3f} s = "
+                f"{n_q / wall:.1f} queries/s; candidates {s['candidates']} (host join "
+                f"{want.stats['candidates']}), probe examined {s['probe_examined']} (host join "
+                f"{want.stats['probe_examined']}), probe_traces {s['probe_traces']}; == the host "
+                f"join's answers; launches {counts}")
+    finally:
+        stream_index.BucketIndex.probe = real
+    check(not probes, f"serve device: BucketIndex.probe was called {len(probes)} times")
+    secs = time.perf_counter() - t0
+    log(f"serve device: phase in {secs:.1f} s, host index never probed")
     return dict(launches), figures, secs
+
 
 # ---------------------------------------------------------------------------
 # LM serving: flash attention (#6) and the SSD intra-chunk step (#7)
@@ -2576,18 +2843,28 @@ def main() -> int:
     phase_brp_scale(torch, dev)
     phase_centralized_scale(torch, dev)
     small_launches, _ = phase_stream_small(torch, dev)
-    stream, world, _, stream_figures = phase_stream(torch, dev)
-    serve_launches, serve_figures, _ = phase_serve(torch, dev, stream, world)
-    del stream, world
+    stream, world, forest, stream_figures = phase_stream(torch, dev)
+    serve_launches, serve_figures, _, serve_cases = phase_serve(torch, dev, stream, world)
+    del stream
+    device_small_launches, _ = phase_stream_device_small(torch, dev)
+    dstream, device_figures = phase_stream_device(torch, dev, world, forest, stream_figures)
+    serve_device_launches, serve_device_figures, _ = phase_serve_device(torch, dev, dstream,
+                                                                        serve_cases)
+    del dstream, world, serve_cases
+    for key in ("final", "one_shot"):
+        stream_figures.pop(key)
     torch.cuda.empty_cache()
     new_paths = {"stream small": small_launches, "stream": stream_figures["counts"],
                  "stream kernel/jit": stream_figures["kernel_counts"]["kernel"],
                  "stream fused/unionfind": stream_figures["kernel_counts"]["fused"],
-                 "serve": serve_launches}
+                 "serve": serve_launches, "stream device small": device_small_launches,
+                 "stream device": device_figures["counts"], "serve device": serve_device_launches}
     for e in entries:
         if e["name"] in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
             e["launches_streaming_serving"] = {path: c.get(e["name"], 0) for path, c in new_paths.items()}
-    log(json.dumps({"stream_updates": stream_figures["updates"], "serve": serve_figures}))
+    log(json.dumps({"stream_updates": stream_figures["updates"], "serve": serve_figures,
+                    "stream_device_updates": device_figures["updates"],
+                    "serve_device": serve_device_figures}))
     phase_lm_kernels(torch, dev)
     phase_lm_small(torch, dev)
     zamba = phase_lm_full(torch, dev, "zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54})

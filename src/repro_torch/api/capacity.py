@@ -73,11 +73,20 @@ class CapacityPlanner:
             cand = build(capacity)
         return cand, capacity
 
-    def plan_stream_join(self, *args, **kwargs):
-        """The JAX package's capacity plan for the in-mesh streaming delta
-        join (``delta_join="device"``); not ported, so it raises
-        :class:`NotPortedError`."""
-        raise NotPortedError("CapacityPlanner.plan_stream_join (delta_join='device')")
+    def plan_stream_join(self, keys_flat, n_shards: int, stats, *, floor_pow2: int = 4):
+        """Exact per-owner capacity plan for the streaming delta join
+        (``delta_join="device"``).
+
+        Delegates to :func:`repro_torch.api.sharded.plan_stream_join`: the
+        slab, key-route and probe buffers are sized from the exact loads the
+        ``StreamJoinStats`` count mirror derives under the device's key
+        hash, the two pair-stage buffers from the pre-dedup emission totals.
+        Capacities quantize to powers of two; the streaming engine keeps
+        them sticky across updates.
+        """
+        from repro_torch.api.sharded import plan_stream_join
+
+        return plan_stream_join(keys_flat, n_shards, stats, floor_pow2=floor_pow2)
 
     def plan_query(
         self,

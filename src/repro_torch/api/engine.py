@@ -17,8 +17,10 @@ from the Hopper MinHash kernel on the card), "brp" and "udf"; a legacy
 ``EngineConfig(subtraj_window=W, subtraj_stride=s)`` runs the subtrajectory
 mode: candidates and scores over sliding windows, folded to trajectory
 pairs by max-over-windows (see ``core/subtraj.py``), with every key-based
-backend.  The JAX engine's sharded execution, autotuning and streaming
-knobs are not ported yet and raise :class:`NotPortedError`.
+backend.  The JAX engine's sharded execution (``n_shards > 1``,
+``overlap_chunks``) and autotuning are not ported yet and raise
+:class:`NotPortedError`; ``delta_join`` and ``score_mode`` are read by the
+streaming engine only.
 """
 from __future__ import annotations
 
@@ -69,13 +71,18 @@ class ExecutionPlan:
     """Where and how the pipeline executes.
 
     Only the single-device plan is ported: ``n_shards > 1``,
-    ``autotune=True``, ``delta_join != "host"`` and ``overlap_chunks != 1``
-    raise :class:`NotPortedError` in the engine.
+    ``autotune=True`` and ``overlap_chunks != 1`` raise
+    :class:`NotPortedError` in the engine.  ``delta_join`` and
+    ``score_mode`` are read by the streaming engine only (the one-shot
+    engine ignores them, as the JAX one does); there ``score_mode="shuffle"``
+    with ``delta_join="device"`` raises :class:`NotPortedError`.
     """
 
     n_shards: int = 1
+    score_mode: str = "replicate"   # "replicate" | "shuffle" (device join)
     lcs_impl: str | None = None     # override EngineConfig.lcs_impl
-    delta_join: str = "host"
+    delta_join: str = "host"        # streaming only: "host" (BucketIndex)
+    #                                 or "device" (the resident slabs)
     autotune: bool = False
     overlap_chunks: int = 1
 
@@ -106,8 +113,6 @@ class AnotherMeEngine:
             raise NotPortedError(f"ExecutionPlan(n_shards={plan.n_shards})")
         if plan.autotune:
             raise NotPortedError("ExecutionPlan(autotune=True)")
-        if plan.delta_join != "host":
-            raise NotPortedError(f"ExecutionPlan(delta_join={plan.delta_join!r})")
         if plan.overlap_chunks != 1:
             raise NotPortedError(f"ExecutionPlan(overlap_chunks={plan.overlap_chunks})")
         self.device = resolve_device(device)

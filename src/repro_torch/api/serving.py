@@ -9,22 +9,28 @@
     res = serve.query(query_batch)       # QueryResult
     res.match_ids[q], res.mss[q]         # top-k world rows per query
 
-Port of ``repro/api/serving.py`` over the host ``BucketIndex`` world of a
-single-device :class:`~repro_torch.api.streaming.StreamingEngine`:
+Port of ``repro/api/serving.py`` over a single-device
+:class:`~repro_torch.api.streaming.StreamingEngine`, on either of its joins:
 
-* queries are NOT ingested: the index is probed read-only
-  (``BucketIndex.probe``) and the world is untouched, so queries commute
-  with ``StreamingEngine.update`` calls;
+* queries are NOT ingested: the index is probed read-only and the world is
+  untouched, so queries commute with ``StreamingEngine.update`` calls.  On
+  the host join the probe is ``BucketIndex.probe``; on the device join
+  (``delta_join="device"``) it is :func:`make_query_probe_pipeline` —
+  :func:`~repro_torch.core.device_index.probe_rows` against the resident
+  slab, then a dedup of the (row, query) candidates — and the candidate list
+  is born on the device and stays there (``_SlabProber``);
 * a query micro-batch runs one score function at pow2-sticky capacities
   (:class:`QueryPlan`, planned by ``CapacityPlanner.plan_query`` from the
-  exact candidate count);
-* candidates score off the resident world codes through the engine's
-  ``lcs_impl`` dispatch: under ``"fused"`` the fused kernel #1 takes the
-  query codes as table A and the world as table B (two tables, so its
-  identity shortcut never fires), under ``"kernel"`` the batched LCS
-  kernel #2; then a segmented per-query top-k — sort by (query, -mss,
-  row), rank within each query's run, scatter to ``[Q, k]`` — leaves only
-  ``[Q, k]`` ids and scores to read;
+  exact candidate count, or on the device join from the ``StreamJoinStats``
+  count mirror);
+* candidates score off the resident world through the engine's ``lcs_impl``
+  dispatch: under ``"fused"`` the fused kernel #1 takes the query codes as
+  table A and the world as table B (two tables, so its identity shortcut
+  never fires), under ``"kernel"`` the batched LCS kernel #2; the device
+  join's world is its places slab, encoded in the score function; then a
+  segmented per-query top-k — sort by (query, -mss, row), rank within each
+  query's run, scatter to ``[Q, k]`` — leaves only ``[Q, k]`` ids and
+  scores to read;
 * matches require ``mss > rho`` (per query), are ordered by (mss
   descending, row id ascending), and empty slots hold ``(PAD_ID, -1.0)``;
 * with ``serve_prune=True`` the REPOSE-style rounds skip every (query,
@@ -33,9 +39,9 @@ single-device :class:`~repro_torch.api.streaming.StreamingEngine`:
   identical either way.  One device holds one world shard.
 
 Every result equals the JAX ``QueryEngine``'s (ids equal, float32 ``mss``
-bit-equal).  The device-resident slab index (``_SlabProber``,
-``make_query_probe_pipeline``) and the sharded score program wait for the
-device join and raise :class:`NotPortedError`.
+bit-equal).  The programs' collectives (the key route's ``all_to_all``, the
+``all_gather`` of the world and of the per-shard top-k) are identities at
+one shard; more shards raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -44,9 +50,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.api.errors import NotPortedError
-from repro_torch.api.sharded import _positive_hash_np, _pow2
+from repro_torch.api.errors import CapacityExceeded
+from repro_torch.api.sharded import (
+    _one_shard, _positive_hash, _positive_hash_np, _pow2, _route,
+)
 from repro_torch.core.device import to_numpy
+from repro_torch.core.device_index import _sort2, flat_row_keys, probe_rows
 from repro_torch.core.encoding import encode_codes
 from repro_torch.core.similarity import (
     PRUNE_EPS, mss_scores, mss_upper_bound, multi_level_lcs,
@@ -98,8 +107,9 @@ def plan_query_capacities(
     * host (``cand_total``): the BucketIndex probe already ran, so the
       candidate count is exact; buffers hold contiguous per-shard chunks;
     * device (``keys_flat`` + ``stats``): the exact per-owner match counts
-      of the query keys from a ``StreamJoinStats`` mirror under the device
-      join's hash (the JAX package's slab index; planning only here).
+      of the query keys from the device join's ``StreamJoinStats`` mirror,
+      under its hash (new-vs-old only: queries never pair with each
+      other), sizing the key route and the probe output.
     """
     q_cap = _pow2(num_queries, floor_pow2)
     k_cap = _pow2(max(k_max, 1), floor_pow2)
@@ -262,14 +272,16 @@ def _serve_score_block(
 # the score function and the probe programs
 # ---------------------------------------------------------------------------
 def make_query_score_pipeline(
-    mesh,
     plan: QueryPlan,
     *,
     betas,
+    places_world: bool = False,
     lcs_impl: str = "wavefront",
     trace_counter: list | None = None,
 ):
-    """The single-device query score + top-k function (``mesh=None``):
+    """The query score + top-k function over one device's world.
+
+    ``places_world=False`` (the host join's world)::
 
       fn(codes [cap, H, Lw], w_len [cap], cand_row [cand_cap] (local world
          slots), cand_qid [cand_cap], q_places [q_cap, L_pad],
@@ -277,14 +289,17 @@ def make_query_score_pipeline(
          prev_row/prev_neg [q_cap, k_cap] (the carried top-k state), tables)
         -> dict: top_row / top_neg [q_cap, k_cap] (merged with prev)
 
+    ``places_world=True`` (the device join's world, the JAX package's mesh
+    form at one shard) takes the places slab ``places [cap_local, Lw]`` in
+    place of ``codes`` and ``w_len``: it is encoded here, its lengths come
+    from the sentinels, and the per-shard top-k is merged with ``prev``.
+
     ``trace_counter`` counts the functions built (one per plan), where the
-    JAX package counts the traces of its compiled program.  A mesh (the
-    sharded world) raises :class:`NotPortedError`.
+    JAX package counts the traces of its compiled program.
     """
     from repro_torch.api.stages import FUSED_MODES, lcs_impl_fn
 
-    if mesh is not None:
-        raise NotPortedError("make_query_score_pipeline over a mesh (n_shards > 1)")
+    _one_shard(plan.n_shards, "make_query_score_pipeline")
     fused_mode = FUSED_MODES.get(lcs_impl)
     impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl)
     if trace_counter is not None:
@@ -302,13 +317,59 @@ def make_query_score_pipeline(
         )
         return {"top_row": m_row, "top_neg": m_neg}
 
-    return run_single
+    if not places_world:
+        return run_single
+
+    def run_places(places, cand_row, cand_qid, q_places, rho_vec, active,
+                   prev_row, prev_neg, tables):
+        # encode the slab here (the all_gather of the encodings: identity);
+        # at one shard the round-robin slot of row g is g
+        codes = encode_codes(places, tables)
+        w_len = (codes[:, 0, :] >= 0).sum(dim=-1).to(torch.int32)
+        return run_single(codes, w_len, cand_row, cand_qid, q_places, rho_vec,
+                          active, prev_row, prev_neg, tables)
+
+    return run_places
 
 
-def make_query_probe_pipeline(*args, **kwargs):
-    """The JAX package's in-mesh read-only probe of the device slabs; not
-    ported (it needs the device join), so it raises :class:`NotPortedError`."""
-    raise NotPortedError("make_query_probe_pipeline (the device-resident slab index)")
+def make_query_probe_pipeline(plan: QueryPlan, *, trace_counter: list | None = None):
+    """The read-only candidate probe of the device join's slab::
+
+      fn(slab_keys [slab_cap], slab_rows, keys [key_in_cap], qids)
+        -> dict: cand_row / cand_qid [1, cand_cap], count [1],
+                 examined [1], overflow [1]
+
+    The join function's route and probe stages with everything mutable
+    removed: query key occurrences route to their owner shard (identity at
+    one shard), :func:`probe_rows` range-probes the slab, and the (world
+    row, query) candidates are deduped (a sort by (row, query): copies
+    found through several shared keys sort adjacent).
+    """
+    _one_shard(plan.n_shards, "make_query_probe_pipeline")
+    if trace_counter is not None:
+        trace_counter[0] += 1
+    n_shards = plan.n_shards
+
+    def run(slab_keys, slab_rows, keys, qids):
+        (rk, rq), o1 = _route(
+            (keys, qids), _positive_hash(keys) % n_shards, keys != PAD_KEY,
+            n_shards=n_shards, capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
+        )
+        row, qid, examined, o2 = probe_rows(slab_keys, slab_rows, rk, rq,
+                                            cap=plan.cand_cap)
+        row_s, qid_s = _sort2(row, qid)
+        dup = torch.zeros_like(row_s, dtype=torch.bool)
+        dup[1:] = (row_s[1:] == row_s[:-1]) & (qid_s[1:] == qid_s[:-1]) & (row_s[1:] != PAD_ID)
+        row_d = row_s.masked_fill(dup, PAD_ID)
+        qid_d = qid_s.masked_fill(dup, PAD_ID)
+        count = (row_d != PAD_ID).sum().to(torch.int32)
+        return {
+            "cand_row": row_d.reshape(n_shards, -1), "cand_qid": qid_d.reshape(n_shards, -1),
+            "count": count.reshape(n_shards), "examined": examined.reshape(n_shards),
+            "overflow": (o1 + o2).to(torch.int32).reshape(n_shards),
+        }
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +411,51 @@ class _HostProber:
 
 
 class _SlabProber:
-    """The JAX package's probe of the device-resident key-sharded slabs;
-    not ported (it needs the device join)."""
+    """Candidate probe against the device join's resident slab: only the
+    query key occurrences cross from the host; the candidate list is born on
+    the device and rests in the buffers the score function reads."""
 
     def __init__(self, engine: "QueryEngine"):
-        raise NotPortedError("_SlabProber (serving over delta_join='device')")
+        self.engine = engine
+
+    def prepare(self, keys_np, k_flat, q_flat):
+        return {
+            "k_flat": k_flat, "q_flat": q_flat,
+            "plan_kwargs": {"keys_flat": k_flat, "stats": self.engine.stream._join_stats},
+        }
+
+    def finish(self, pre, qplan: QueryPlan):
+        e = self.engine
+        stream = e.stream
+        k_flat, q_flat = pre["k_flat"], pre["q_flat"]
+        out = None
+        for _ in range(e.planner.max_retries + 1):
+            in_k = np.full((qplan.key_in_cap,), PAD_KEY, np.int32)
+            in_q = np.full((qplan.key_in_cap,), PAD_ID, np.int32)
+            in_k[: k_flat.shape[0]] = k_flat
+            in_q[: q_flat.shape[0]] = q_flat
+            e._xfer_bytes += in_k.nbytes + in_q.nbytes
+            out = e._probe_runner(qplan)(
+                stream._slab_keys, stream._slab_rows,
+                torch.tensor(in_k, device=stream.device),
+                torch.tensor(in_q, device=stream.device),
+            )
+            if int(out["overflow"].sum()) == 0:
+                break
+            # exact planning makes this unreachable
+            qplan = dataclasses.replace(qplan, cand_cap=qplan.cand_cap * 2,
+                                        key_route_cap=qplan.key_route_cap * 2)
+        if int(out["overflow"].sum()):
+            # a truncated candidate list would silently drop matches
+            raise CapacityExceeded(
+                "query probe still overflowed after "
+                f"{e.planner.max_retries} retries (per-shard overflow "
+                f"{to_numpy(out['overflow']).tolist()}); refusing to "
+                "serve a truncated candidate set"
+            )
+        stats = {"candidates": int(out["count"].sum()),
+                 "probe_examined": int(out["examined"].sum())}
+        return out["cand_row"].reshape(-1), out["cand_qid"].reshape(-1), qplan, stats
 
 
 # ---------------------------------------------------------------------------
@@ -386,10 +487,10 @@ class QueryEngine:
     serve_prune: the REPOSE-style pruning rounds (module docstring);
         results are identical either way.
 
-    Counters: ``serve_traces`` counts the score functions built (one per
-    new sticky plan; the JAX package counts its program's traces there),
-    ``runner_builds`` the same builds, and ``probe_traces`` stays 0 (the
-    host probe builds nothing).
+    Counters: ``serve_traces`` and ``probe_traces`` count the score and probe
+    functions built (one per new sticky plan; the JAX package counts its
+    programs' traces there), ``runner_builds`` both; the host probe builds
+    nothing.
     """
 
     def __init__(self, stream, *, k: int = 10, serve_prune: bool = False):
@@ -407,9 +508,12 @@ class QueryEngine:
         self._qplan: QueryPlan | None = None
         self._compactions_seen = stream.compactions
         self._runner_cache: dict = {}
+        self._probe_cache: dict = {}
         self._xfer_bytes = 0
-        # a StreamingEngine of the port always has the host join
-        self._prober = _HostProber(self)
+        # the probe adapters share prepare()/finish(), so query() never
+        # branches on the world's index form
+        self._prober = (_SlabProber(self) if stream.delta_join == "device"
+                        else _HostProber(self))
 
     # -- public entry point --------------------------------------------------
 
@@ -458,7 +562,7 @@ class QueryEngine:
         if Q == 0 or self.stream.n == 0:
             return empty()
         keys_np = self.stream._new_row_keys(places, lengths)
-        k_flat, q_flat = _flat_row_keys(keys_np)
+        k_flat, q_flat = flat_row_keys(keys_np)
         if k_flat.size == 0:
             return empty()
         pre = self._prober.prepare(keys_np, k_flat, q_flat)
@@ -527,7 +631,7 @@ class QueryEngine:
         prev_neg = torch.full((qplan.q_cap, qplan.k_cap), torch.inf, dtype=torch.float32,
                               device=dev)
         runner = self._score_runner(qplan)
-        world = (self.stream._codes_dev, self.stream._len_dev)
+        world = self._world_args()
 
         def run_round(active_np, prow, pneg):
             self._xfer_bytes += active_np.nbytes
@@ -575,25 +679,28 @@ class QueryEngine:
             kth[k_vec == 0] = np.inf
         return row_state, neg_state
 
+    def _world_args(self):
+        stream = self.stream
+        if stream._mesh_world:
+            return (stream._places_dev,)
+        return (stream._codes_dev, stream._len_dev)
+
     def _score_runner(self, qplan: QueryPlan):
         key = (qplan, self.config.lcs_impl, self.stream._H)
         runner = self._runner_cache.get(key)
         if runner is None:
             runner = make_query_score_pipeline(
-                None, qplan, betas=self.betas, lcs_impl=self.config.lcs_impl,
-                trace_counter=self.serve_traces,
+                qplan, betas=self.betas, places_world=self.stream._mesh_world,
+                lcs_impl=self.config.lcs_impl, trace_counter=self.serve_traces,
             )
             self._runner_cache[key] = runner
             self.runner_builds += 1
         return runner
 
-
-def _flat_row_keys(keys_np: np.ndarray):
-    """Per-row-deduped flat (key, row-index) occurrences, with query indices
-    standing in for world row ids."""
-    ks = np.sort(np.asarray(keys_np), axis=1)
-    valid = ks != PAD_KEY
-    valid[:, 1:] &= ks[:, 1:] != ks[:, :-1]
-    row_idx, col_idx = np.nonzero(valid)
-    return (ks[row_idx, col_idx].astype(np.int32),
-            row_idx.astype(np.int32))
+    def _probe_runner(self, qplan: QueryPlan):
+        runner = self._probe_cache.get(qplan)
+        if runner is None:
+            runner = make_query_probe_pipeline(qplan, trace_counter=self.probe_traces)
+            self._probe_cache[qplan] = runner
+            self.runner_builds += 1
+        return runner

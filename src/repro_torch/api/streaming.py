@@ -1,45 +1,62 @@
 """`StreamingEngine`: micro-batch ingestion with incremental maintenance.
 
-    from repro_torch.api import StreamingEngine, EngineConfig
+    from repro_torch.api import StreamingEngine, EngineConfig, ExecutionPlan
 
     stream = StreamingEngine(forest, EngineConfig(backend="ssh", rho=2.0))
     for micro_batch in feed:
         result = stream.update(micro_batch)   # EngineResult, same type as
                                               # AnotherMeEngine.run
 
-Port of ``repro/api/streaming.py`` on one device with the host delta join
-(``ExecutionPlan(delta_join="host")``).  Per-update cost follows the DELTA,
-not the world:
+Port of ``repro/api/streaming.py`` on one device.  Per-update cost follows
+the DELTA, not the world:
 
-* the world's ``[cap, H, L]`` code table and its lengths live on the
-  engine's device (the card unless ``device="cpu"``) and grow by amortized
-  doubling (:meth:`CapacityPlanner.grow_capacity`); an update encodes and
-  writes only its new rows, and a growth of the world width ``L`` rebuilds
-  the table from the host mirror;
-* candidates come from a host :class:`~repro_torch.core.stream_index.BucketIndex`
-  that inserts the new rows' keys and emits exactly the pairs whose later
-  member arrived in this update;
-* the delta pairs are scored on the device through the one-shot engine's
+* the world lives on the engine's device (the card unless ``device="cpu"``)
+  and grows by amortized doubling (:meth:`CapacityPlanner.grow_capacity`);
+  an update writes only its new rows, and a growth of the world width ``L``
+  rebuilds it from the host mirror;
+* with the host delta join (``ExecutionPlan(delta_join="host")``, the
+  default) the world is the ``[cap, H, L]`` code table, a host
+  :class:`~repro_torch.core.stream_index.BucketIndex` inserts the new rows'
+  keys and emits exactly the pairs whose later member arrived in this
+  update, and the pairs are scored through the one-shot engine's
   ``lcs_impl`` dispatch (the fused kernel #1 under ``"fused"``, the batched
-  LCS kernel #2 under ``"kernel"``), on LOCAL ids (slot = id - base);
+  LCS kernel #2 under ``"kernel"``);
+* with ``ExecutionPlan(delta_join="device")`` the bucket state leaves the
+  host: it is a sorted slab on the device (``core/device_index.py``), the
+  world is the ``[cap, L]`` places slab, and each update ships only the new
+  rows' key occurrences into the join function
+  (:func:`~repro_torch.api.sharded.make_streaming_join_pipeline`), whose
+  deduped delta pairs feed the score function
+  (:func:`~repro_torch.api.sharded.make_streaming_score_pipeline`) on the
+  device, pruned there under ``score_prune``: the pair list never reaches
+  the host (``driver_pair_rows == 0``).  The host keeps a count mirror
+  (``StreamJoinStats``) that sizes every buffer exactly; a run that
+  overflowed anyway is never committed (compact-then-retry, doubling, and
+  :class:`CapacityExceeded` last);
+* the device programs speak LOCAL ids (slot = id - base);
 * communities are maintained incrementally: a host union-find, or
   ``connected_components`` on the device warm-started from the previous
   labels through star edges ``(label[v], v)``, or Bron-Kerbosch over the
   accumulated edges in ``"cliques"`` mode;
 * rows leave by TTL, ``window`` or :meth:`StreamingEngine.retire`; their
-  pairs, edges and communities go at once, and a watermark compaction
-  rolls the world table to the live window.
+  pairs, edges and communities go at once (on the device join their slab
+  slots become tombstones), and a watermark compaction rolls the world to
+  the live window and drops the tombstones.
 
 The final update's result equals a one-shot ``AnotherMeEngine.run`` over
 the surviving rows, for any split into micro-batches, and every buffer
-equals the JAX engine's slot by slot.  ``delta_join="device"`` and
-``n_shards > 1`` raise :class:`NotPortedError`; ``subtraj_window`` raises
+equals the JAX engine's slot by slot, on both joins; the two joins give the
+same result.  ``n_shards > 1``, and ``score_mode="shuffle"`` with the device
+join, raise :class:`NotPortedError`; ``subtraj_window`` raises
 ``NotImplementedError``, as in the JAX package.  ``REPRO_FAULT_INJECT=1``
-derates only the capacity plans of the JAX package's device join; the host
-join has no capacity that can overflow, so, as there, it changes nothing.
+derates the device join's fresh capacity plans so its overflow recovery
+runs; results stay the same.  The host join has no capacity that can
+overflow, so, as in the JAX package, it changes nothing there.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 
 import numpy as np
@@ -48,10 +65,16 @@ import torch
 from repro_torch.api.engine import AnotherMeEngine, EngineConfig, ExecutionPlan
 from repro_torch.api.errors import CapacityExceeded, NotPortedError
 from repro_torch.api.instrumentation import Instrumentation
+from repro_torch.api.sharded import (
+    StreamShardPlan, _positive_hash_np, _pow2, make_streaming_join_pipeline,
+    make_streaming_score_pipeline, sticky_join_plan,
+)
 from repro_torch.api.stages import _KERNEL_MODES, _score_with_kernel
 from repro_torch.core import communities as comm
 from repro_torch.core.device import synchronize, to_numpy
-from repro_torch.core.device_index import ShardSummaries, StreamJoinStats
+from repro_torch.core.device_index import (
+    ShardSummaries, StreamJoinStats, compact_slab, flat_row_keys, mark_dead_rows,
+)
 from repro_torch.core.encoding import encode_codes, encode_types
 from repro_torch.core.pipeline import AnotherMeResult as EngineResult
 from repro_torch.core.similarity import (
@@ -59,7 +82,8 @@ from repro_torch.core.similarity import (
 )
 from repro_torch.core.stream_index import BucketIndex
 from repro_torch.core.types import (
-    PAD_ID, PAD_PLACE, CandidatePairs, EncodedBatch, ScoredPairs, TrajectoryBatch,
+    PAD_ID, PAD_KEY, PAD_PLACE, CandidatePairs, EncodedBatch, ScoredPairs,
+    TrajectoryBatch,
 )
 
 COMPONENTS_IMPLS = ("unionfind", "jit")
@@ -67,6 +91,19 @@ DELTA_JOINS = ("host", "device")
 
 # a row with no TTL never expires on its own
 NEVER_EXPIRES = np.iinfo(np.int64).max
+
+
+def _fault_inject() -> bool:
+    """REPRO_FAULT_INJECT=1 derates every fresh device-join plan to tiny
+    caps, so the overflow -> compact -> retry path runs (results stay the
+    same: overflowed runs are never committed).  Read per call."""
+    return bool(int(os.environ.get("REPRO_FAULT_INJECT", "0") or "0"))
+
+
+def _derate_cap(cap: int) -> int:
+    """Fault-injection derating: a power of two >= 4, small enough to
+    overflow, so the retry doubling converges within the extra retries."""
+    return max(4, _pow2(max(cap // 8, 1)))
 
 
 class StreamingEngine:
@@ -85,18 +122,28 @@ class StreamingEngine:
         accumulated edges.
     world_capacity: preallocation hint (rows), so the world never regrows
         below it.
+    join_slab_capacity: preallocation hint of the device join's slab
+        (resident key occurrences), so it never regrows below it.
     window: every row expires after at most ``window`` updates.
     max_resident_bytes: an update whose buffer growth would exceed this is
         refused with :class:`CapacityExceeded` before any mutation.
     compact_watermark: dead fraction at which the world is compacted.
-    device: where the world table lives (None: the card; raises without one).
+    device: where the world lives (None: the card; raises without one).
 
-    Compile counters: the JAX engine counts XLA traces in ``score_traces``
-    and ``join_traces`` and built runners in ``runner_builds``.  The port
-    builds no per-shape program: its kernels are compiled once per process
-    from source (``kernels/_build.py``), and the host join path runs no
-    sharded runner, so all three stay 0, as they do in the JAX engine's
-    host path; the stats keep them so the two engines' keys match.
+    Build counters: the JAX engine counts the XLA traces of its device
+    join's programs in ``join_traces`` and ``score_traces`` and the runners
+    it builds in ``runner_builds``.  The port builds one function per
+    distinct plan where the JAX engine compiles one, and counts the builds
+    under the same names (0 on the host join, which builds none).
+    ``score_traces`` and ``runner_builds`` equal the JAX engine's at every
+    update; ``join_traces`` can be lower, because the JAX engine traces a
+    join plan again when its slab input changes sharding (a fresh
+    allocation, then the join program's output).
+
+    ``join_timing`` holds the last update's device-join split: the host
+    mirror's seconds (planning and commit, ``mirror_s``) and the join
+    function's milliseconds (``program_ms``: CUDA events on the card, the
+    host clock on the CPU), over ``attempts`` runs.
     """
 
     def __init__(
@@ -107,6 +154,7 @@ class StreamingEngine:
         *,
         components_impl: str = "unionfind",
         world_capacity: int | None = None,
+        join_slab_capacity: int | None = None,
         window: int | None = None,
         max_resident_bytes: int | None = None,
         compact_watermark: float = 0.5,
@@ -132,10 +180,12 @@ class StreamingEngine:
                 "would invalidate resident window ids.  Use the batch "
                 "AnotherMeEngine for subtrajectory search."
             )
-        if plan.delta_join == "device":
-            raise NotPortedError("StreamingEngine with delta_join='device'")
         if plan.n_shards > 1:
             raise NotPortedError(f"StreamingEngine with n_shards={plan.n_shards}")
+        if plan.delta_join == "device" and plan.score_mode != "replicate":
+            raise NotPortedError(
+                f"StreamingEngine with delta_join='device' and score_mode={plan.score_mode!r}"
+            )
         # the one-shot engine validates config/plan and owns the shared
         # pieces: forest tables, betas, backend, planner, device
         self._eng = AnotherMeEngine(forest, config, plan, device=device)
@@ -174,21 +224,34 @@ class StreamingEngine:
         self._cap_floor = max(16, int(world_capacity or 0))
         self._places_np = np.full((0, 1), PAD_PLACE, np.int32)
         self._lengths_np = np.zeros((0,), np.int32)
-        self._codes_dev = None   # [cap, H, L] int32 on self.device
-        self._len_dev = None     # [cap] int32 on self.device
+        self._codes_dev = None   # host join: [cap, H, L] int32 codes
+        self._len_dev = None     # host join: [cap] int32 lengths
+        self._places_dev = None  # device join: [cap, L] int32 places slab
         self.delta_join = plan.delta_join
+        # the device join keeps the world in the JAX package's round-robin
+        # places layout (row g at slot g on one shard)
+        self._mesh_world = self.delta_join == "device"
         self._index = BucketIndex()
-        # the device join's planning mirror: built as the JAX engine builds
-        # it, and empty on the host join (the driver_mirror_keys stat)
-        self._join_stats = StreamJoinStats(1)
+        # the device join's resident sorted slab (PAD at the end) and its
+        # host count mirror (empty on the host join: driver_mirror_keys)
+        self._slab_keys = None
+        self._slab_rows = None
+        self._slab_cap = 0
+        self._join_stats = StreamJoinStats(plan.n_shards)
+        self._join_plan = None
+        self._score_caps = None  # sticky (pair_cap, rest_cap) of the score
+        #   function, from the join's post-dedup count
+        self._slab_floor = int(join_slab_capacity or 0)
         # one world shard: the serve-time REPOSE prune bounds
-        self.shard_summaries = ShardSummaries(1)
+        self.shard_summaries = ShardSummaries(plan.n_shards)
         self._examined_total = 0
+        self._join_runner_cache: dict = {}
+        self._runner_cache: dict = {}
         self.join_traces = [0]
         self.score_traces = [0]
         self.runner_builds = 0
-        # per-update host -> device transfer accounting of this port: the
-        # new rows (or the whole mirror on a rebuild) and the scored pairs
+        self.join_timing = {"mirror_s": 0.0, "program_ms": 0.0, "attempts": 0}
+        # per-update host -> device transfer accounting of this port
         self._xfer = {"bytes_in": 0, "pair_rows": 0, "key_rows": 0}
         # accumulated scored pairs (amortized-doubling host buffers)
         self._acc_cap = 0
@@ -230,31 +293,45 @@ class StreamingEngine:
             keys_np = self._new_row_keys(places, lengths) if d else None
         # admission BEFORE any mutation: a refused update leaves the world
         # untouched
-        self._admission_check(d, places.shape[1] if d else 0)
+        self._admission_check(d, places.shape[1] if d else 0, keys_np)
         n_old = self.n
         with instr.phase("ingest"):
             if d:
                 self._ingest(places, lengths, ttl=ttl)
-                synchronize(self._codes_dev)
-        with instr.phase("delta_join"):
-            if d:
-                lo, hi, examined = self._index.insert(keys_np, first_id=n_old)
-            else:
-                lo = hi = np.empty((0,), np.int32)
-                examined = 0
-        num_delta = int(lo.shape[0])
+                synchronize(self._places_dev if self._mesh_world else self._codes_dev)
         num_pruned = 0
-        if self.config.score_prune and num_delta:
-            with instr.phase("prune"):
-                lo, hi, num_pruned = self._prune_delta(lo, hi)
-        with instr.phase("score"):
-            if lo.shape[0]:
-                s_left, s_right, s_lvl, s_mss = self._score_delta(lo, hi)
-            else:
-                s_left = s_right = np.empty((0,), np.int32)
-                s_lvl = np.empty((0, self._H), np.int32)
-                s_mss = np.empty((0,), np.float32)
-            self._accumulate_scored(s_left, s_right, s_lvl, s_mss)
+        empty = (np.empty((0,), np.int32), np.empty((0,), np.int32),
+                 np.empty((0, self._H), np.int32), np.empty((0,), np.float32))
+        if self.delta_join == "device":
+            self.join_timing = {"mirror_s": 0.0, "program_ms": 0.0, "attempts": 0}
+            with instr.phase("delta_join"):
+                left_dev, right_dev, num_delta, max_delta, examined = (
+                    self._device_delta_join(keys_np, n_old)
+                    if d else (None, None, 0, 0, 0)
+                )
+            with instr.phase("score"):
+                if num_delta:
+                    *scored, num_pruned = self._score_device_pairs(
+                        left_dev, right_dev, max_delta, num_delta)
+                else:
+                    scored = empty
+                s_left, s_right, s_lvl, s_mss = scored
+                self._accumulate_scored(s_left, s_right, s_lvl, s_mss)
+        else:
+            with instr.phase("delta_join"):
+                if d:
+                    lo, hi, examined = self._index.insert(keys_np, first_id=n_old)
+                else:
+                    lo = hi = np.empty((0,), np.int32)
+                    examined = 0
+            num_delta = int(lo.shape[0])
+            if self.config.score_prune and num_delta:
+                with instr.phase("prune"):
+                    lo, hi, num_pruned = self._prune_delta(lo, hi)
+            with instr.phase("score"):
+                s_left, s_right, s_lvl, s_mss = (
+                    self._score_delta(lo, hi) if lo.shape[0] else empty)
+                self._accumulate_scored(s_left, s_right, s_lvl, s_mss)
         with instr.phase("communities"):
             edge_mask = s_mss > np.float32(self.config.rho)
             new_edges = list(zip(s_left[edge_mask].tolist(),
@@ -286,6 +363,13 @@ class StreamingEngine:
             driver_mirror_keys=self._join_stats.num_keys,
             join_traces=self.join_traces[0],
         )
+        if self.delta_join == "device":
+            # the score buffers are sized from the join's post-dedup count,
+            # never from its pre-dedup emission bound
+            instr.record(
+                join_pair_cap=self._join_plan.pair_cap if self._join_plan else 0,
+                score_pair_cap=self._score_caps[0] if self._score_caps else 0,
+            )
         if self.config.score_prune:
             instr.record(num_pruned=num_pruned)
         return EngineResult(
@@ -342,39 +426,71 @@ class StreamingEngine:
 
     def resident_bytes(self) -> int:
         """Bytes of device-resident world state (the code table and the
-        lengths): what ``max_resident_bytes`` bounds."""
-        if self._codes_dev is None:
-            return 0
-        return int(self._codes_dev.numel() * 4 + self._len_dev.numel() * 4)
+        lengths, or the places slab and the join slab): what
+        ``max_resident_bytes`` bounds."""
+        total = 0
+        if self._codes_dev is not None:
+            total += self._codes_dev.numel() * 4 + self._len_dev.numel() * 4
+        if self._places_dev is not None:
+            total += self._places_dev.numel() * 4
+        if self._slab_keys is not None:
+            total += self._slab_keys.numel() * 4 + self._slab_rows.numel() * 4
+        return int(total)
 
     def dead_fraction(self) -> float:
-        """Tombstone fraction of the resident rows (the watermark input)."""
+        """Tombstone fraction awaiting compaction (the watermark input): of
+        the resident rows, and on the device join also of the slab."""
         span = self.n - self._base
-        return float((span - self.live_size) / span if span else 0.0)
+        frac = (span - self.live_size) / span if span else 0.0
+        if self.delta_join == "device":
+            frac = max(frac, self._join_stats.dead_fraction())
+        return float(frac)
 
-    def _resident_bytes_at(self, world_cap: int, world_L: int) -> int:
-        """Projected resident bytes at the given capacity (admission)."""
-        return world_cap * self._H * world_L * 4 + world_cap * 4
+    def _resident_bytes_at(self, world_cap: int, slab_cap: int,
+                           world_L: int | None = None) -> int:
+        """Projected resident bytes at the given capacities (admission)."""
+        L = self.L if world_L is None else world_L
+        if self._mesh_world:
+            world = world_cap * L * 4
+        else:
+            world = world_cap * self._H * L * 4 + world_cap * 4
+        slab = 2 * self.plan.n_shards * slab_cap * 4 if self.delta_join == "device" else 0
+        return world + slab
 
-    def _admission_check(self, d: int, Lb: int) -> None:
-        """Would this update's buffer growth exceed ``max_resident_bytes``?
-        Mirrors ``_ingest``'s growth arithmetic and runs before any
-        mutation, so a refusal leaves the world unchanged."""
-        if self.max_resident_bytes is None or not d:
+    def _admission_check_bytes(self, projected: int, what: str) -> None:
+        if self.max_resident_bytes is None:
             return
-        new_cap = self.planner.grow_capacity(
-            max(self._cap, self._cap_floor), self.n - self._base + d
-        )
-        projected = self._resident_bytes_at(new_cap, max(self.L, Lb))
         if projected > self.max_resident_bytes:
             raise CapacityExceeded(
-                f"ingesting {d} rows needs {projected} resident bytes, over "
-                f"the max_resident_bytes budget of {self.max_resident_bytes}; "
+                f"{what} needs {projected} resident bytes, over the "
+                f"max_resident_bytes budget of {self.max_resident_bytes}; "
                 "the update was refused and the world is unchanged — "
                 "retire rows, raise the budget, or shrink the batch",
                 needed_bytes=projected,
                 budget_bytes=self.max_resident_bytes,
             )
+
+    def _admission_check(self, d: int, Lb: int, keys_np) -> None:
+        """Would this update's buffer growth exceed ``max_resident_bytes``?
+        Mirrors ``_ingest``'s growth arithmetic and the join planner's slab
+        sizing, and runs before any mutation, so a refusal leaves the world
+        unchanged."""
+        if self.max_resident_bytes is None or not d:
+            return
+        new_cap = self.planner.grow_capacity(
+            max(self._cap, self._cap_floor), self.n - self._base + d
+        )
+        slab_cap = self._slab_cap
+        if self.delta_join == "device" and keys_np is not None:
+            k_flat, _ = flat_row_keys(keys_np)
+            if k_flat.size:
+                jplan = self.planner.plan_stream_join(
+                    k_flat, self.plan.n_shards, self._join_stats)
+                slab_cap = max(slab_cap, jplan.slab_cap)
+        self._admission_check_bytes(
+            self._resident_bytes_at(new_cap, slab_cap, max(self.L, Lb)),
+            f"ingesting {d} rows",
+        )
 
     def _expire_due(self) -> int:
         """Retire every live row whose TTL/window closed (expiry update <=
@@ -401,7 +517,22 @@ class StreamingEngine:
         self.retired_total += int(dead.size)
         # keys are a pure per-row function: recompute them from the mirror
         keys_np = self._new_row_keys(self._places_np[dl], self._lengths_np[dl])
-        self._index.retire(dead.tolist(), keys_np)
+        if self.delta_join == "device":
+            k_flat, _ = flat_row_keys(keys_np)
+            if k_flat.size:
+                self._join_stats.retire(
+                    k_flat, _positive_hash_np(k_flat) % self.plan.n_shards)
+            if self._slab_keys is not None:
+                # tombstone the slab in place: rows become PAD_ID, keys stay.
+                # The dead list ships PAD-padded at a power-of-two size
+                m_cap = self.planner.update_capacity(int(dead.size))
+                buf = np.full((m_cap,), PAD_ID, np.int32)
+                buf[: dead.size] = dl
+                self._xfer["bytes_in"] += buf.nbytes
+                self._slab_rows = mark_dead_rows(
+                    self._slab_rows, torch.tensor(buf, device=self.device))
+        else:
+            self._index.retire(dead.tolist(), keys_np)
         # purge scored pairs touching a dead row into FRESH buffers: results
         # already returned may hold views of the old ones
         if self._acc_n:
@@ -462,8 +593,10 @@ class StreamingEngine:
 
     def _compact(self) -> None:
         """Watermark compaction: the base advances past the dead prefix (a
-        PREFIX rebase: global ids stay, the device sees local ids) and the
-        world table rolls by ``(arange + shift) % cap``."""
+        PREFIX rebase: global ids stay, the device sees local ids), the
+        world rolls by ``(arange + shift) % cap``, and on the device join
+        the slab drops its tombstones and may shrink: the one point where
+        the capacity plans may contract."""
         t0 = time.perf_counter()
         base = self._base
         span = self.n - base
@@ -477,18 +610,44 @@ class StreamingEngine:
             self._expiry_np[:keep] = self._expiry_np[shift:span]
             self._alive_np[keep:span] = False
             self._expiry_np[keep:span] = NEVER_EXPIRES
+            idx = (torch.arange(self._cap, device=self.device) + shift) % self._cap
             if self._codes_dev is not None:
-                idx = (torch.arange(self._cap, device=self.device) + shift) % self._cap
                 self._codes_dev = self._codes_dev.index_select(0, idx)
                 self._len_dev = self._len_dev.index_select(0, idx)
+            if self._places_dev is not None:
+                self._places_dev = self._places_dev.index_select(0, idx)
             if self._labels.shape[0] > shift:
                 self._labels = self._labels[shift:] - shift
             else:
                 self._labels = np.empty((0,), np.int32)
             self._uf.reset_from_labels(self._labels)
+        if self.delta_join == "device":
+            if self._slab_keys is not None:
+                self._compact_slab(shift)
+            self._join_stats.compact()
+        # the next update replans from the post-compaction mirror
+        self._join_plan = None
+        self._score_caps = None
         self._base = base + shift
         self.compactions += 1
         self.compact_ms_total += (time.perf_counter() - t0) * 1e3
+
+    def _compact_slab(self, shift: int) -> None:
+        """Drop the slab's tombstones, rebase its rows by ``shift``, and
+        shrink it to the post-compaction plan (doubling, never lossy, if the
+        plan proves short)."""
+        live = self._join_stats.owner_entries - self._join_stats.owner_dead
+        want = int(max(np.max(live), 1) * self.planner.slack) if live.size else 1
+        out_cap = max(4, _pow2(want))
+        if self._slab_floor:
+            out_cap = max(out_cap, _pow2(-(-self._slab_floor // self.plan.n_shards)))
+        for _ in range(self.planner.max_retries + 1):
+            keys_o, rows_o, _, ovf = compact_slab(
+                self._slab_keys, self._slab_rows, shift, out_cap=out_cap)
+            if int(ovf) == 0:
+                break
+            out_cap *= 2
+        self._slab_keys, self._slab_rows, self._slab_cap = keys_o, rows_o, out_cap
 
     # -- ingestion: world growth + device-resident appends -------------------
 
@@ -529,9 +688,18 @@ class StreamingEngine:
         )
         self.n = n0 + d
         self.shard_summaries.insert(n0, lengths)
-        # only the new rows go to the device, unless the table was rebuilt;
-        # torch.tensor copies, so the device table never aliases the mirror
-        if rebuild or self._codes_dev is None:
+        # only the new rows go to the device, unless the world was rebuilt;
+        # torch.tensor copies, so the device world never aliases the mirror
+        if self._mesh_world:
+            # the places slab: at one shard row g sits at slot g
+            if rebuild or self._places_dev is None:
+                self._places_dev = torch.tensor(self._places_np, device=self.device)
+                self._xfer["bytes_in"] += self._places_np.nbytes
+            else:
+                new_places = self._places_np[rows]
+                self._places_dev[rows] = torch.tensor(new_places, device=self.device)
+                self._xfer["bytes_in"] += new_places.nbytes
+        elif rebuild or self._codes_dev is None:
             self._codes_dev = encode_codes(
                 torch.tensor(self._places_np, device=self.device), self.tables
             )
@@ -605,6 +773,213 @@ class StreamingEngine:
             )
         return (lo.astype(np.int32), hi.astype(np.int32), to_numpy(lvl),
                 to_numpy(mss))
+
+    # -- the device-resident delta join (delta_join="device") ---------------
+
+    def _device_delta_join(self, keys_np, n_old: int):
+        """Ship ONLY the new rows' key occurrences into the join function.
+
+        The resident slab is probed and merged on the device; the deduped
+        delta pairs rest there as ``[1, pair_cap]`` buffers that feed the
+        score function.  Returns ``(left_dev, right_dev, num_delta,
+        max_delta, examined)``, ``max_delta`` the post-dedup count that
+        sizes the score buffers.
+
+        The commit is functional: the join function RETURNS the merged
+        slab, and the engine adopts it (and folds the update into the count
+        mirror) only after a run with zero overflow, so the retries replan
+        and rerun from unchanged state.
+        """
+        t_mirror = time.perf_counter()
+        k_flat, row_idx = flat_row_keys(keys_np)
+        if k_flat.size == 0:
+            self.join_timing["mirror_s"] += time.perf_counter() - t_mirror
+            return None, None, 0, 0, 0
+        n_sh = self.plan.n_shards
+        fresh = self.planner.plan_stream_join(k_flat, n_sh, self._join_stats)
+        self.join_timing["mirror_s"] += time.perf_counter() - t_mirror
+        if _fault_inject():
+            # derate every stage of the FRESH plan (sticky maxima still
+            # apply) so the overflow -> compact -> retry path runs
+            fresh = dataclasses.replace(
+                fresh,
+                key_route_cap=_derate_cap(fresh.key_route_cap),
+                nn_cap=_derate_cap(fresh.nn_cap), no_cap=_derate_cap(fresh.no_cap),
+                pair_route_cap=_derate_cap(fresh.pair_route_cap),
+                pair_cap=_derate_cap(fresh.pair_cap),
+            )
+        jplan = sticky_join_plan(fresh, self._join_plan)
+        if self._slab_cap > jplan.slab_cap:
+            # the slab only shrinks at a compaction; between them the plan
+            # must match its allocation
+            jplan = dataclasses.replace(jplan, slab_cap=self._slab_cap)
+        if self._slab_floor:
+            floor = _pow2(-(-self._slab_floor // n_sh))
+            if floor > jplan.slab_cap:
+                jplan = dataclasses.replace(jplan, slab_cap=floor)
+        out = None
+        retries = self.planner.max_retries + (4 if _fault_inject() else 0)
+        compacted = False
+        for _ in range(retries + 1):
+            self._ensure_slab(jplan.slab_cap)
+            # local row ids, recomputed per attempt: a compaction in the
+            # loop moves the base
+            r_flat = (n_old - self._base + row_idx).astype(np.int32)
+            in_k = np.full((jplan.key_in_cap,), PAD_KEY, np.int32)
+            in_r = np.full((jplan.key_in_cap,), PAD_ID, np.int32)
+            in_k[: k_flat.shape[0]] = k_flat
+            in_r[: r_flat.shape[0]] = r_flat
+            self._xfer["key_rows"] += int(k_flat.shape[0])
+            self._xfer["bytes_in"] += in_k.nbytes + in_r.nbytes
+            out, ovf = self._run_join(jplan, in_k, in_r)
+            if int(ovf.sum()) == 0:
+                break
+            if int(ovf[2]) and not compacted and int(self._join_stats.owner_dead.sum()):
+                # slab overflow with tombstones resident: reclaim them FIRST
+                # and retry at the (maybe smaller) post-compaction plan
+                self._compact()
+                compacted = True
+                t_mirror = time.perf_counter()
+                jplan = self.planner.plan_stream_join(k_flat, n_sh, self._join_stats)
+                self.join_timing["mirror_s"] += time.perf_counter() - t_mirror
+                if self._slab_cap > jplan.slab_cap:
+                    jplan = dataclasses.replace(jplan, slab_cap=self._slab_cap)
+                continue
+            # exact planning makes a steady-state overflow impossible; double
+            # whatever stage overflowed
+            jplan = dataclasses.replace(
+                jplan,
+                key_route_cap=jplan.key_route_cap * 2,
+                nn_cap=jplan.nn_cap * 2, no_cap=jplan.no_cap * 2,
+                pair_route_cap=jplan.pair_route_cap * 2,
+                pair_cap=jplan.pair_cap * 2,
+                slab_cap=jplan.slab_cap * (2 if int(ovf[2]) else 1),
+            )
+            self._admission_check_bytes(
+                self._resident_bytes_at(self._cap, jplan.slab_cap),
+                "in-mesh delta join retry doubling",
+            )
+        if int(ovf.sum()):
+            # never adopt a slab whose merge dropped entries: every later
+            # pair of the dropped rows would be lost
+            raise CapacityExceeded(
+                "in-mesh delta join still overflowed after "
+                f"{retries} retries (per-shard overflow "
+                f"{to_numpy(out['overflow']).tolist()}); refusing to "
+                "commit a lossy bucket state"
+            )
+        self._slab_keys = out["slab_keys"]
+        self._slab_rows = out["slab_rows"]
+        t_mirror = time.perf_counter()
+        self._join_stats.commit(k_flat, _positive_hash_np(k_flat) % n_sh)
+        self.join_timing["mirror_s"] += time.perf_counter() - t_mirror
+        self._join_plan = jplan
+        num_delta = int(out["count"].sum())
+        max_delta = int(out["max_count"][0])
+        examined = int(out["examined"].sum())
+        return out["left"], out["right"], num_delta, max_delta, examined
+
+    def _run_join(self, jplan, in_k: np.ndarray, in_r: np.ndarray):
+        """One run of the join function on copies of the key buffers;
+        returns its outputs and the host copy of its per-stage overflow.
+        The run is timed into ``join_timing`` (CUDA events on the card)."""
+        dev = self.device
+        keys, rows = torch.tensor(in_k, device=dev), torch.tensor(in_r, device=dev)
+        runner = self._join_runner(jplan)
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = runner(self._slab_keys, self._slab_rows, keys, rows)
+            end.record()
+            ovf = to_numpy(out["overflow"]).sum(axis=0)
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            out = runner(self._slab_keys, self._slab_rows, keys, rows)
+            ovf = to_numpy(out["overflow"]).sum(axis=0)
+            ms = (time.perf_counter() - t0) * 1e3
+        self.join_timing["program_ms"] += ms
+        self.join_timing["attempts"] += 1
+        return out, ovf
+
+    def _ensure_slab(self, slab_cap: int) -> None:
+        """Allocate the slab, or regrow it to ``slab_cap`` by padding its
+        end on the device (valid entries stay at the front)."""
+        if self._slab_keys is None:
+            self._slab_cap = slab_cap
+            n = self.plan.n_shards * slab_cap
+            self._slab_keys = torch.full((n,), PAD_KEY, dtype=torch.int32, device=self.device)
+            self._slab_rows = torch.full((n,), PAD_ID, dtype=torch.int32, device=self.device)
+        elif slab_cap > self._slab_cap:
+            grow = (0, slab_cap - self._slab_cap)
+            self._slab_keys = torch.nn.functional.pad(self._slab_keys, grow, value=PAD_KEY)
+            self._slab_rows = torch.nn.functional.pad(self._slab_rows, grow, value=PAD_ID)
+            self._slab_cap = slab_cap
+
+    def _join_runner(self, jplan):
+        runner = self._join_runner_cache.get(jplan)
+        if runner is None:
+            runner = make_streaming_join_pipeline(jplan, trace_counter=self.join_traces)
+            self._join_runner_cache[jplan] = runner
+            self.runner_builds += 1
+        return runner
+
+    def _score_device_pairs(self, left_dev, right_dev, max_delta, num_delta):
+        """Score the join's resting delta pairs straight off their device
+        buffers, pruned in the score function under ``score_prune``.
+
+        The buffers are cut to ``pow2(max_delta)`` columns, the post-dedup
+        count (dedup compacts the valid pairs to the front), not the join
+        plan's pre-dedup bound; the cut is sticky (monotone max).
+        """
+        n_sh = self.plan.n_shards
+        join_cap = int(left_dev.shape[-1])
+        pair_cap = min(_pow2(max_delta), join_cap)
+        rest_cap = min(_pow2(num_delta), join_cap)
+        if self._score_caps is not None:
+            pair_cap = min(max(pair_cap, self._score_caps[0]), join_cap)
+            rest_cap = min(max(rest_cap, self._score_caps[1]), join_cap)
+        self._score_caps = (pair_cap, rest_cap)
+        left_dev, right_dev = left_dev[:, :pair_cap], right_dev[:, :pair_cap]
+        splan = StreamShardPlan(n_shards=n_sh, cap_local=self._cap // n_sh,
+                                pair_cap=pair_cap, out_cap=pair_cap)
+        # "replicate" scores in place: nothing can overflow, so the JAX
+        # engine's retry loop runs once
+        out = self._score_runner(splan)(self._places_dev, left_dev.reshape(-1),
+                                        right_dev.reshape(-1), self.tables)
+        self._overflow += int(out["overflow"].sum())
+        num_pruned = int(out["pruned"].sum())
+        return (*self._collect_scored(out), num_pruned)
+
+    def _score_runner(self, splan):
+        """One score function per (plan, impl, wavefront dtype, world shape,
+        prune), as the JAX engine caches its compiled runners."""
+        key = (splan, self.plan.score_mode, self.config.lcs_impl,
+               wavefront_dtype_from_env(), self.L, self._H, self.config.score_prune)
+        runner = self._runner_cache.get(key)
+        if runner is None:
+            runner = make_streaming_score_pipeline(
+                splan, betas=self.betas, score_mode=self.plan.score_mode,
+                lcs_impl=self.config.lcs_impl, trace_counter=self.score_traces,
+                score_prune=self.config.score_prune, prune_tau=self.config.rho,
+            )
+            self._runner_cache[key] = runner
+            self.runner_builds += 1
+        return runner
+
+    def _collect_scored(self, out):
+        """The valid slots of a score function's output, as global ids in
+        lexicographic (left, right) order, the host join's order."""
+        left = to_numpy(out["left"]).reshape(-1)
+        right = to_numpy(out["right"]).reshape(-1)
+        mss = to_numpy(out["mss"]).reshape(-1)
+        lvl = to_numpy(out["level_lcs"]).reshape(-1, self._H)
+        valid = left != PAD_ID
+        left = left[valid] + np.int32(self._base)
+        right = right[valid] + np.int32(self._base)
+        order = np.lexsort((right, left))
+        return left[order], right[order], lvl[valid][order], mss[valid][order]
 
     # -- accumulation + incremental communities ------------------------------
 

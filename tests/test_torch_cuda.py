@@ -649,12 +649,12 @@ def _to(tree, dev):
 STREAM_WORLD = dict(num_types=8, classes_per_type=3, num_places=80, seed=4)
 
 
-def _streams(cuda, impl, components_impl, backend="ssh", n=600):
+def _streams(cuda, impl, components_impl, backend="ssh", n=600, delta_join="host"):
     """The same short stream (5 micro-batches, window 3, a TTL of 2 on batch
     1, a retire after update 2) on the card with ``impl`` and on the CPU
-    with the plain wavefront.  Returns {device: (engine, [result per
-    update])}."""
-    from repro_torch.api import StreamingEngine
+    with the plain wavefront, both on ``delta_join``.  Returns {device:
+    (engine, [result per update])}."""
+    from repro_torch.api import ExecutionPlan, StreamingEngine
     from repro_torch.core.types import TrajectoryBatch
 
     cfg = dict(rho=1.5, community_mode="components", backend=backend)
@@ -662,6 +662,7 @@ def _streams(cuda, impl, components_impl, backend="ssh", n=600):
     for dev, lcs_impl in ((cuda, impl), ("cpu", "wavefront")):
         batch, forest = synthetic_setup(n, device=dev, **STREAM_WORLD)
         engine = StreamingEngine(forest, EngineConfig(lcs_impl=lcs_impl, **cfg),
+                                 ExecutionPlan(delta_join=delta_join),
                                  components_impl=components_impl, window=3, device=dev)
         step, results = n // 5, []
         for u in range(5):
@@ -676,12 +677,13 @@ def _streams(cuda, impl, components_impl, backend="ssh", n=600):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl,components_impl,backend", [
-    ("fused", "unionfind", "ssh"), ("kernel", "jit", "ssh"), ("fused", "jit", "minhash"),
-    ("kernel", "unionfind", "brp"),
+@pytest.mark.parametrize("impl,components_impl,backend,delta_join", [
+    ("fused", "unionfind", "ssh", "host"), ("kernel", "jit", "ssh", "host"),
+    ("fused", "jit", "minhash", "host"), ("kernel", "unionfind", "brp", "host"),
+    ("fused", "unionfind", "ssh", "device"), ("kernel", "jit", "minhash", "device"),
 ])
-def test_stream_on_the_card_equals_cpu(cuda, impl, components_impl, backend):
-    runs = _streams(cuda, impl, components_impl, backend)
+def test_stream_on_the_card_equals_cpu(cuda, impl, components_impl, backend, delta_join):
+    runs = _streams(cuda, impl, components_impl, backend, delta_join=delta_join)
     (card, got), (_, want) = runs[cuda], runs["cpu"]
     for u, (g, w) in enumerate(zip(got, want)):
         for field in ("left", "right", "level_lcs", "mss"):
@@ -689,7 +691,12 @@ def test_stream_on_the_card_equals_cpu(cuda, impl, components_impl, backend):
             assert torch.equal(getattr(g.scored, field).cpu(), getattr(w.scored, field)), (u, field)
         assert g.similar_pairs == w.similar_pairs, u
         assert g.communities == w.communities, u
+        assert g.stats["pairs_examined"] == w.stats["pairs_examined"], u
+        assert g.stats["driver_pair_rows"] == 0 or delta_join == "host", u
     assert card.compactions >= 1 and max(len(w.similar_pairs) for w in want) > 0
+    if delta_join == "device":
+        assert torch.equal(card._slab_keys.cpu(), runs["cpu"][0]._slab_keys)
+        assert torch.equal(card._slab_rows.cpu(), runs["cpu"][0]._slab_rows)
     kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
     assert kern.launches > 0
     assert (tmhk.minhash_kernel.launches > 0) == (backend == "minhash")
@@ -698,10 +705,11 @@ def test_stream_on_the_card_equals_cpu(cuda, impl, components_impl, backend):
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["fused", "kernel"])
 @pytest.mark.parametrize("serve_prune", [False, True])
-def test_query_batch_on_the_card_equals_cpu(cuda, impl, serve_prune):
+@pytest.mark.parametrize("delta_join", ["host", "device"])
+def test_query_batch_on_the_card_equals_cpu(cuda, impl, serve_prune, delta_join):
     from repro_torch.api import QueryEngine
 
-    runs = _streams(cuda, impl, "unionfind")
+    runs = _streams(cuda, impl, "unionfind", delta_join=delta_join)
     rng = np.random.default_rng(9)
     k = rng.integers(0, 8, size=40).astype(np.int32)
     rho = rng.choice([0.5, 1.5, 2.5], size=40).astype(np.float32)
@@ -717,3 +725,55 @@ def test_query_batch_on_the_card_equals_cpu(cuda, impl, serve_prune):
     assert (got.match_ids != 2**31 - 1).any()
     kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
     assert kern.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# the device join's slab operations on the card against the CPU
+# ---------------------------------------------------------------------------
+def _big_slab(n, seed, dead=0.1, alphabet=200_000):
+    """A sorted slab of ``n`` (key, row) entries (a tenth tombstoned) in
+    ``n + n // 8`` slots, and ``n // 16`` incoming occurrences, as numpy."""
+    from repro_torch.core.types import PAD_ID, PAD_KEY
+
+    rng = np.random.default_rng(seed)
+    cap = n + n // 8
+    keys = np.sort(rng.integers(0, alphabet, size=n)).astype(np.int32)
+    rows = rng.permutation(n).astype(np.int32)
+    rows[rng.random(n) < dead] = PAD_ID
+    kk = np.full((cap,), PAD_KEY, np.int32)
+    rr = np.full((cap,), PAD_ID, np.int32)
+    kk[:n], rr[:n] = keys, rows
+    m = n // 16
+    in_k = np.full((m + 64,), PAD_KEY, np.int32)
+    in_r = np.full((m + 64,), PAD_ID, np.int32)
+    in_k[:m] = rng.integers(0, alphabet, size=m)
+    in_r[:m] = n + np.arange(m)
+    return kk, rr, in_k, in_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["probe_pairs", "merge_insert", "probe_rows", "mark_dead_rows",
+                                "compact_slab"])
+def test_slab_op_on_the_card_equals_cpu(cuda, op):
+    """Each slab operation on a random slab of ~1M entries: the card's
+    outputs equal the CPU's, buffer for buffer."""
+    from repro_torch.core import device_index as di
+
+    kk, rr, in_k, in_r = _big_slab(1 << 20, seed=5)
+    dead = np.sort(np.random.default_rng(6).choice(1 << 20, size=4096, replace=False))
+    dead = dead.astype(np.int32)
+    calls = {
+        "probe_pairs": lambda k, r, a, b, d: di.probe_pairs(k, r, a, b, nn_cap=1 << 15,
+                                                            no_cap=1 << 20),
+        "merge_insert": lambda k, r, a, b, d: di.merge_insert(k, r, a, b),
+        "probe_rows": lambda k, r, a, b, d: di.probe_rows(k, r, a, b, cap=1 << 20),
+        "mark_dead_rows": lambda k, r, a, b, d: (di.mark_dead_rows(r, d),),
+        "compact_slab": lambda k, r, a, b, d: di.compact_slab(k, r, 17, out_cap=1 << 20),
+    }
+    outs = {}
+    for dev in (cuda, "cpu"):
+        args = [torch.as_tensor(x, device=dev) for x in (kk, rr, in_k, in_r, dead)]
+        outs[dev] = calls[op](*args)
+    for got, want in zip(outs[cuda], outs["cpu"]):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want), op

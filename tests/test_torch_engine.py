@@ -188,7 +188,7 @@ def test_cpu_engine_never_launches_kernels(worlds):
 @pytest.mark.parametrize("plan,config", [
     (ExecutionPlan(n_shards=2), EngineConfig()),
     (ExecutionPlan(autotune=True), EngineConfig()),
-    (ExecutionPlan(delta_join="device"), EngineConfig()),
+    (ExecutionPlan(n_shards=2, delta_join="device"), EngineConfig()),
     (ExecutionPlan(overlap_chunks=2), EngineConfig()),
     (ExecutionPlan(n_shards=2), EngineConfig(subtraj_window=4)),
 ])

@@ -9,6 +9,10 @@ interleaved with updates, retires and compactions.  The JAX engines run
 ``lcs_impl="wavefront"`` (their own suite pins every impl to it); the port
 runs each of its impl families.  The port's result is also held to a
 whole-world brute force, and its segmented top-k to a numpy reference.
+Over a device-join world (``delta_join="device"``) every answer equals the
+JAX engine's and the port's host-join world's, the host ``BucketIndex`` is
+never probed, and the slab probe and the places-slab score function equal
+the JAX programs output by output.
 """
 import numpy as np
 import pytest
@@ -20,7 +24,7 @@ import repro.api.serving as jserving
 import repro.data as jdata
 from repro.core.types import TrajectoryBatch as JBatch
 from repro_torch.api import (
-    CapacityPlanner, EngineConfig, NotPortedError, QueryEngine, StreamingEngine,
+    CapacityPlanner, EngineConfig, ExecutionPlan, NotPortedError, QueryEngine, StreamingEngine,
 )
 from repro_torch.api import serving as tserving
 from repro_torch.core import device_index as tdi
@@ -256,13 +260,149 @@ def dataclasses_equal(a, b):
 
 
 def test_refusals():
+    """The probe follows the world's join; more than one shard refuses."""
     places, lengths, jf, tf = world(n=6)
     stream = StreamingEngine(tf, EngineConfig(rho=RHO), device=CPU)
-    qe = QueryEngine(stream)
-    with pytest.raises(NotPortedError, match="_SlabProber"):
-        tserving._SlabProber(qe)
-    plan = tserving.QueryPlan(n_shards=1, cap_local=16, L_pad=8, q_cap=4, k_cap=4, cand_cap=4)
-    with pytest.raises(NotPortedError, match="make_query_probe_pipeline"):
-        tserving.make_query_probe_pipeline(None, plan)
-    with pytest.raises(NotPortedError, match="mesh"):
-        tserving.make_query_score_pipeline(object(), plan, betas=stream.betas)
+    assert isinstance(QueryEngine(stream)._prober, tserving._HostProber)
+    dev = StreamingEngine(tf, EngineConfig(rho=RHO), ExecutionPlan(delta_join="device"), device=CPU)
+    assert isinstance(QueryEngine(dev)._prober, tserving._SlabProber)
+    plan = tserving.QueryPlan(n_shards=2, cap_local=16, L_pad=8, q_cap=4, k_cap=4, cand_cap=4)
+    with pytest.raises(NotPortedError, match="make_query_probe_pipeline with n_shards=2"):
+        tserving.make_query_probe_pipeline(plan)
+    with pytest.raises(NotPortedError, match="make_query_score_pipeline with n_shards=2"):
+        tserving.make_query_score_pipeline(plan, betas=stream.betas, places_world=True)
+
+
+# ---------------------------------------------------------------------------
+# serving over the device join's slab
+# ---------------------------------------------------------------------------
+class DevicePair(Pair):
+    """``Pair`` over two device-join streams (the JAX one and the port's),
+    with the port's host-join stream beside them: every answer also equals
+    the host join's."""
+
+    def __init__(self, jf, tf, impl="wavefront", serve_prune=False, k=5, **kw):
+        cfg = dict(rho=RHO, k=1)
+        self.js = japi.StreamingEngine(jf, japi.EngineConfig(**cfg),
+                                       japi.ExecutionPlan(delta_join="device"), **kw)
+        self.ts = StreamingEngine(tf, EngineConfig(lcs_impl=impl, **cfg),
+                                  ExecutionPlan(delta_join="device"), device=CPU, **kw)
+        self.hs = StreamingEngine(tf, EngineConfig(lcs_impl=impl, **cfg), device=CPU, **kw)
+        self.jq = japi.QueryEngine(self.js, k=k, serve_prune=serve_prune)
+        self.tq = QueryEngine(self.ts, k=k, serve_prune=serve_prune)
+        self.hq = QueryEngine(self.hs, k=k, serve_prune=serve_prune)
+
+    def update(self, p, ln):
+        super().update(p, ln)
+        self.hs.update(tbatch(p, ln))
+
+    def retire(self, ids):
+        super().retire(ids)
+        self.hs.retire(ids)
+
+    def query(self, p, ln, **kw):
+        got = super().query(p, ln, **kw)
+        host = self.hq.query(tbatch(p, ln), **kw)
+        np.testing.assert_array_equal(got.match_ids, host.match_ids)
+        np.testing.assert_array_equal(got.mss, host.mss)
+        assert got.stats["candidates"] <= host.stats["candidates"]
+        return got
+
+
+@pytest.mark.parametrize("impl,serve_prune", [
+    ("wavefront", False), ("fused", False), ("fused", True), ("kernel", True),
+])
+def test_device_join_topk_matches_jax(monkeypatch, impl, serve_prune):
+    """Queries over the slab equal the JAX device join's and the host join's
+    answers, per-query k and rho included, interleaved with updates, a
+    retire and compactions; the host BucketIndex is never probed."""
+    import repro.core.stream_index as jsi
+    from repro_torch.core import stream_index as tsi
+
+    places, lengths, jf, tf = world(n=40)
+    pair = DevicePair(jf, tf, impl, serve_prune, k=4, window=2)
+
+    def never(*a, **kw):
+        raise AssertionError("BucketIndex.probe called on a device-join world")
+
+    qp, ql = places[2:8], lengths[2:8]
+    k_vec = np.array([1, 2, 3, 0, 9, 4])
+    rho_vec = np.array([0.5, 1, 1, 1, 2, 0.1], np.float32)
+    for lo, hi in ((0, 12), (12, 24), (24, 32), (32, 40)):
+        pair.update(places[lo:hi], lengths[lo:hi])
+        with monkeypatch.context() as m:
+            m.setattr(jsi.BucketIndex, "probe", never)
+            m.setattr(tsi.BucketIndex, "probe", never)
+            before = (pair.ts._slab_keys.clone(), pair.ts._slab_rows.clone(),
+                      dict(pair.ts._join_stats.counts))
+            res = pair.tq.query(tbatch(qp, ql))
+            want = pair.jq.query(jbatch(qp, ql))
+            np.testing.assert_array_equal(res.match_ids, want.match_ids)
+            np.testing.assert_array_equal(res.mss, want.mss)
+            assert res.stats == want.stats
+            assert torch.equal(before[0], pair.ts._slab_keys)
+            assert torch.equal(before[1], pair.ts._slab_rows)
+            assert before[2] == pair.ts._join_stats.counts
+        pair.query(qp, ql, k=k_vec, rho=rho_vec)
+        if hi == 24:
+            pair.retire([13, 20, 21])
+    assert pair.ts._base > 0 and pair.ts.compactions == pair.js.compactions
+    assert pair.ts._index.num_keys_inserted == 0 and res.stats["probe_traces"] >= 1
+
+
+def test_device_probe_and_score_functions_match_jax():
+    """The probe and the places-slab score function, output by output,
+    against the JAX programs on a one-device mesh."""
+    import jax
+
+    from repro.core import compat
+
+    mesh = compat.make_mesh((1,), ("ex",), devices=jax.devices()[:1])
+    places, lengths, jf, tf = world(n=24)
+    ts = StreamingEngine(tf, EngineConfig(rho=RHO, k=1), ExecutionPlan(delta_join="device"),
+                         device=CPU)
+    js = japi.StreamingEngine(jf, japi.EngineConfig(rho=RHO, k=1),
+                              japi.ExecutionPlan(delta_join="device"))
+    ts.update(tbatch(places, lengths))
+    js.update(jbatch(places, lengths))
+    keys = ts._new_row_keys(places[:5], lengths[:5])
+    k_flat, q_flat = tdi.flat_row_keys(keys)
+    plan = tserving.plan_query_capacities(5, 3, n_shards=1, cap_local=ts._cap, world_L=ts.L,
+                                          q_len_max=int(lengths[:5].max()), keys_flat=k_flat,
+                                          stats=ts._join_stats)
+    jplan = jserving.QueryPlan(**dataclasses_asdict(plan))
+    in_k = np.full((plan.key_in_cap,), 2**31 - 1, np.int32)
+    in_q = np.full((plan.key_in_cap,), PAD_ID, np.int32)
+    in_k[: k_flat.size], in_q[: q_flat.size] = k_flat, q_flat
+    t_counter, j_counter = [0], [0]
+    got = tserving.make_query_probe_pipeline(plan, trace_counter=t_counter)(
+        ts._slab_keys, ts._slab_rows, torch.tensor(in_k), torch.tensor(in_q))
+    want = jserving.make_query_probe_pipeline(mesh, jplan, trace_counter=j_counter)(
+        js._slab_keys, js._slab_rows, jnp.asarray(in_k), jnp.asarray(in_q))
+    for name in want:
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]), err_msg=name)
+    assert int(got["count"][0]) > 0 and t_counter == j_counter == [1]
+    q_places = np.full((plan.q_cap, plan.L_pad), PAD_PLACE, np.int32)
+    q_places[:5, : places.shape[1]] = places[:5]
+    rho = np.full((plan.q_cap,), RHO, np.float32)
+    active = np.ones((plan.q_cap, 1), bool)
+    prev_row = np.full((plan.q_cap, plan.k_cap), PAD_ID, np.int32)
+    prev_neg = np.full((plan.q_cap, plan.k_cap), np.inf, np.float32)
+    args = (q_places, rho, active, prev_row, prev_neg)
+    for impl in ("wavefront", "fused"):
+        t_fn = tserving.make_query_score_pipeline(plan, betas=ts.betas, places_world=True,
+                                                  lcs_impl=impl)
+        j_fn = jserving.make_query_score_pipeline(mesh, jplan, betas=js.betas)
+        out_t = t_fn(ts._places_dev, got["cand_row"].reshape(-1), got["cand_qid"].reshape(-1),
+                     *(torch.tensor(a) for a in args), ts.tables)
+        out_j = j_fn(js._places_dev, want["cand_row"].reshape(-1), want["cand_qid"].reshape(-1),
+                     *(jnp.asarray(a) for a in args), js.tables)
+        for name in out_j:
+            np.testing.assert_array_equal(out_t[name].numpy(), np.asarray(out_j[name]))
+        assert (out_t["top_row"][:5] != PAD_ID).any()
+
+
+def dataclasses_asdict(x):
+    import dataclasses
+
+    return dataclasses.asdict(x)

@@ -26,8 +26,8 @@ import repro.core.stream_index as jsi
 import repro.data as jdata
 from repro.core.types import TrajectoryBatch as JBatch
 from repro_torch.api import (
-    LCS_IMPLS, AnotherMeEngine, CapacityExceeded, CapacityPlanner, EngineConfig,
-    ExecutionPlan, NotPortedError, StreamingEngine,
+    LCS_IMPLS, AnotherMeEngine, CapacityExceeded, EngineConfig, ExecutionPlan,
+    NotPortedError, StreamingEngine,
 )
 from repro_torch.api import sharded as tsharded
 from repro_torch.core import communities as tcomm
@@ -296,8 +296,9 @@ def test_world_growth_and_preallocation_match_jax():
 
 def test_refusals():
     _, _, _, tf = world(0, n=4)
-    with pytest.raises(NotPortedError, match="delta_join"):
-        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device"), device=CPU)
+    with pytest.raises(NotPortedError, match="score_mode='shuffle'"):
+        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device", score_mode="shuffle"),
+                        device=CPU)
     with pytest.raises(NotPortedError, match="n_shards=2"):
         StreamingEngine(tf, plan=ExecutionPlan(n_shards=2), device=CPU)
     with pytest.raises(NotImplementedError, match="subtraj_window"):
@@ -310,8 +311,8 @@ def test_refusals():
         StreamingEngine(tf, window=0, device=CPU)
     with pytest.raises(ValueError, match="micro-batch"):
         StreamingEngine(tf, device=CPU).update_many([])
-    with pytest.raises(NotPortedError, match="plan_stream_join"):
-        CapacityPlanner().plan_stream_join(np.zeros(3, np.int32), 1, None)
+    with pytest.raises(NotPortedError, match="n_shards=2"):
+        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, delta_join="device"), device=CPU)
 
 
 def test_default_device_is_the_card():
