@@ -26,12 +26,32 @@ phases, and exits non-zero if any phase fails:
 4. fig1    — the paper's Fig. 1 story through the fused kernel.
 5. small   — a 3,000-trajectory world on the card (kernel impls) against the
    plain CPU engine: identical similar pairs, communities and scores.
+5a. sharded small — ``ExecutionPlan(n_shards=n, devices=(card,) * n)``, every
+   shard on the card: Fig. 1 on two shards; the small world (and a
+   2,000-trajectory world of 10-20 places for windows of 8) at 2, 4 and 8
+   shards, "ssh", "minhash" (#5), "brp" and "udf", replicate and shuffle,
+   the prune (at rho 5.5, which the bound min(len) can miss) and
+   ``overlap_chunks`` 1 and 4, "fused" (#1/#3) and "kernel" (#2), and
+   shrunken capacities that must retry: every per-shard output bit-equal
+   to the same plan on CPU shards (plain versions), similar pairs and
+   communities equal to the card's one-shard engine; no shard off the card.
 6. main    — the one-shot SSH engine on the paper's scalability world
    (1,000,000 trajectories, 300 types) with ``lcs_impl="fused"``, on the
    register route; 1M-pair slices of its scored buffer, at its head and
    across its count into the PAD tail, are re-scored by the plain version;
    the score stage is split into the PAD clamp, the kernel, the
    ``exact_mss`` recompute and the host's mask and pair set.
+6a. sharded — the main world on four shards of the card, replicate,
+   "fused" (#1 once a shard), components: similar pairs and the scored
+   (pair, level_lcs, mss) set equal the main run's; phase seconds, plan,
+   retries and peak memory logged.
+6b. sharded shuffle — 200,000 trajectories, shuffle mode with the prune and
+   four chunks on four shards, against the one-shard engine with the prune
+   (similar pairs, communities, the scored set, the pruned count).  Cut
+   from 1M: past the exact-pair limit this plan takes the uniform bound,
+   which retries twice at 200,000 (doubling every buffer twice); at 1M
+   (82.6M scored slots a shard) the hop buckets so doubled would hold
+   ~85 GB of code rows, past the card's 80 GB.
 7. kernel  — 200,000 trajectories with ``lcs_impl="kernel"`` and "fused":
    equal similar pairs and communities; the LCS kernel on its register
    route.
@@ -42,6 +62,9 @@ phases, and exits non-zero if any phase fails:
    buffer, at its head and across its count, re-scored by the plain
    version); 20,000 with "kernel" against "fused" (the LCS kernel on its
    register route at W = 8).
+8a. sharded subtraj — the subtrajectory world (100,000, W = 8) on four
+   shards, replicate, "fused" (#3 once a shard): the folded scored buffer,
+   similar pairs and communities equal the one-shard run's.
 9. shingle — the public ``shingle_keys`` op (which neither engine calls) on
    the main world's type codes, counted, and the kernel against its plain
    version there, on the subtrajectory world's window view and at edge
@@ -220,6 +243,10 @@ STREAM_KERNEL_N = 20_000
 STREAM_SMALL_N = 3_000
 SERVE_QUERIES = 1_000
 SERVE_K = 10
+# the sharded paths: shards on the one card; the prune's rho (rows hold at
+# least 5 places, so the bound min(len) > 2 prunes nothing at RHO)
+SHARDS = 4
+PRUNE_RHO = 5.5
 
 
 class SmokeFailure(RuntimeError):
@@ -964,7 +991,7 @@ def phase_subtraj(torch, dev, n=SUB_N, slice_pairs=1 << 20):
         f"its fold equals the engine's row for {whole.size} of {fkey.size} trajectory "
         f"pairs (all their window pairs in the slice), the rest under the engine's max")
     sub_types = (enc.codes[:, 0, :], enc.lengths)
-    return counts, coords, sub_types, routes
+    return counts, coords, sub_types, routes, res
 
 
 def phase_subtraj_kernel_path(torch, dev, n=SUB_KERNEL_N):
@@ -2204,6 +2231,278 @@ def phase_serve_device(torch, dev, stream, cases):
     log(f"serve device: phase in {secs:.1f} s, host index never probed")
     return dict(launches), figures, secs
 
+# ---------------------------------------------------------------------------
+# the one-shot sharded pipeline: ExecutionPlan(n_shards=n, devices=(card,) * n)
+class _ShardOutputs:
+    """Records the per-shard outputs of the sharded program's last run in
+    an engine (what the sharded stage gets back from its runner)."""
+
+    def __enter__(self):
+        from repro_torch.api import engine
+
+        self.stage = engine._ShardedEncodeJoinScoreStage
+        self.real = self.stage._execute
+        self.out = None
+
+        def spy(stage, *args, **kwargs):
+            got = self.real(stage, *args, **kwargs)
+            self.out = got[0]
+            return got
+
+        self.stage._execute = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.stage._execute = self.real
+
+
+def _sharded_engine(dev, forest, impl, n, backend="ssh", mode="replicate", oc=1, slack=1.3,
+                    **cfg):
+    from repro_torch.api import AnotherMeEngine, EngineConfig, ExecutionPlan
+
+    plan = ExecutionPlan(n_shards=n, devices=(dev,) * n, score_mode=mode, overlap_chunks=oc,
+                         shard_slack=slack)
+    cfg.setdefault("rho", RHO)
+    return AnotherMeEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg),
+                           plan, device=dev)
+
+
+def _run_sharded(engine, batch):
+    """Run a sharded engine with the launch counts at 0 just before; returns
+    (result, per-shard outputs, launch counts).  Every shard must lie on
+    the engine's device type (no shard quietly on the CPU)."""
+    with _ShardOutputs() as cap:
+        res, counts = _run_counted(engine, batch)
+    kinds = {d.type for d in engine.mesh().devices}
+    check(kinds == {engine.device.type}, f"shards placed on {kinds}, the engine on {engine.device}")
+    return res, cap.out, counts
+
+
+def _merge_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+# (n_shards, backend, score_mode, overlap_chunks, score_prune, window, lcs_impl, shard_slack,
+#  the kernels the card's run must launch)
+SHARDED_SMALL = (
+    (2, "ssh", "replicate", 1, False, None, "fused", 1.3, ["fused_gather_score"]),
+    (4, "ssh", "shuffle", 4, True, None, "fused", 1.3, ["fused_gather_score"]),
+    (8, "ssh", "shuffle", 1, False, None, "kernel", 1.3, ["lcs_kernel"]),
+    (4, "ssh", "replicate", 1, True, None, "kernel", 1.3, ["lcs_kernel"]),
+    (4, "minhash", "replicate", 1, False, None, "fused", 1.3,
+     ["minhash_kernel", "fused_gather_score"]),
+    (8, "minhash", "shuffle", 4, True, None, "fused", 1.3, ["minhash_kernel", "fused_gather_score"]),
+    (4, "brp", "shuffle", 1, False, None, "fused", 1.3, ["fused_gather_score"]),
+    (4, "udf", "replicate", 1, False, None, "fused", 1.3, ["fused_gather_score"]),
+    (4, "ssh", "replicate", 1, False, SUB_WINDOW, "fused", 1.3, ["fused_windowed_gather_score"]),
+    (8, "ssh", "shuffle", 4, True, SUB_WINDOW, "fused", 1.3, ["fused_windowed_gather_score"]),
+    (2, "ssh", "replicate", 1, False, SUB_WINDOW, "kernel", 1.3, ["lcs_kernel"]),
+    (4, "ssh", "replicate", 1, False, None, "fused", 0.2, ["fused_gather_score"]),  # retries
+)
+
+
+def phase_sharded_small(torch, dev, n=SMALL_N, sub_n=SUB_SMALL_N):
+    """Sharded plans with every shard on the card: Fig. 1 at two shards, and
+    a 3,000-trajectory world (a 2,000-trajectory one of 10-20 places for
+    windows of 8) at 2, 4 and 8 shards, every backend, both score modes,
+    the prune, chunks, "fused" and "kernel", and shrunken capacities that
+    retry.  Each card run's per-shard outputs are bit-equal to the same
+    plan on CPU shards (plain versions); its similar pairs and communities
+    equal the card's one-shard engine's."""
+    from repro_torch.data import fig1_world, synthetic_setup
+
+    batch, forest = fig1_world(device=dev)
+    one = _engine(dev, forest, "fused", rho=3.0).run(batch)
+    res, _, counts = _run_sharded(_sharded_engine(dev, forest, "fused", 2, rho=3.0), batch)
+    expect_launched(counts, ["fused_gather_score"])
+    check((0, 1) in res.similar_pairs and res.communities == one.communities,
+          "sharded fig1: Carol should find her other me on two shards")
+    total = dict(counts)
+    worlds = {}
+    for dev_ in ("cpu", dev):
+        worlds[str(dev_), False] = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev_)
+        worlds[str(dev_), True] = synthetic_setup(sub_n, num_types=NUM_TYPES, seed=0,
+                                                  device=dev_, **SUB_ROWS)
+    one_shard = {}
+    for shards, backend, mode, oc, prune, window, impl, slack, kernels in SHARDED_SMALL:
+        tag = (f"sharded small n_shards={shards} {backend} {mode} overlap_chunks={oc} "
+               f"prune={prune} W={window} {impl} slack={slack}")
+        # with the prune on, a rho the bound min(len) can miss (rows hold
+        # at least 5 places, so rho = 2 would prune nothing)
+        rho = PRUNE_RHO if prune else RHO
+        cfg = dict(backend=backend, mode=mode, oc=oc, slack=slack, score_prune=prune, rho=rho,
+                   subtraj_window=window, community_mode="components")
+        batch, forest = worlds[str(dev), window is not None]
+        eng = _sharded_engine(dev, forest, impl, shards, **cfg)
+        res, out, counts = _run_sharded(eng, batch)
+        expect_launched(counts, kernels)
+        _merge_counts(total, counts)
+        cpu_batch, _ = worlds["cpu", window is not None]
+        want, want_out, _ = _run_sharded(_sharded_engine("cpu", forest, impl, shards, **cfg),
+                                         cpu_batch)
+        for field, v in want_out.items():
+            check(torch.equal(out[field].cpu(), v), f"{tag}: per-shard {field} != CPU shards")
+        check(res.stats["join_overflow"] == 0 and res.stats["shard_plan"] == want.stats["shard_plan"],
+              f"{tag}: plan or overflow differs from the CPU's")
+        key = (backend, prune, window)
+        if key not in one_shard:
+            one_shard[key] = _engine(dev, forest, "fused", backend=backend, rho=rho,
+                                     score_prune=prune, subtraj_window=window,
+                                     community_mode="components").run(batch)
+        ref = one_shard[key]
+        check(res.similar_pairs == ref.similar_pairs and res.communities == ref.communities,
+              f"{tag}: similar pairs or communities != the one-shard engine's")
+        # the order-blind baselines find few similar pairs at 300 types
+        check(res.stats["num_candidates"] > 0
+              and (len(ref.similar_pairs) > 0 or backend in ("minhash", "brp") or prune),
+              f"{tag}: no candidates or no similar pairs")
+        check(not prune or res.stats["num_pruned"] > 0, f"{tag}: the prune dropped nothing")
+        if slack < 1:
+            check(eng.last_shard_retries > 0, f"{tag}: shrunken capacities did not retry")
+        log(f"{tag}: == CPU shards and the one-shard engine ({res.stats['num_candidates']} "
+            f"candidates, {len(res.similar_pairs)} similar, retries {eng.last_shard_retries}, "
+            f"launches { {k: v for k, v in counts.items() if v} })")
+    return total
+
+
+SHARD_PHASE_KEYS = ("t_keys", "t_plan", "t_execute", "t_communities", "t_total")
+
+
+def _sharded_line(torch, dev, tag, engine, res, counts, wall):
+    s = res.stats
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    keys = [k for k in SHARD_PHASE_KEYS + ("t_aggregate",) if k in s]
+    fig = {"phases_s": {k: s[k] for k in keys}, "shard_plan": s["shard_plan"],
+           "retries": engine.last_shard_retries, "wall_s": wall, "peak_gib": peak,
+           "num_candidates": s["num_candidates"], "num_similar": s["num_similar"],
+           "num_communities": s["num_communities"],
+           "launches": {k: v for k, v in counts.items() if v}}
+    for k in ("num_pruned", "num_traj_pairs", "num_window_pairs"):
+        if k in s:
+            fig[k] = s[k]
+    log(f"{tag}: " + " ".join(f"{k}={s[k]:.3f}s" for k in keys))
+    log(f"{tag}: run wall {wall:.3f}s, peak device memory {peak:.2f} GiB, retries "
+        f"{engine.last_shard_retries}, plan {s['shard_plan']}, launches {fig['launches']}")
+    return fig
+
+
+def _scored_set_on_card(torch, sc):
+    """(pairs packed as lo << 32 | hi, level_lcs, mss) of a scored buffer's
+    valid slots, sorted by pair, on the card."""
+    from repro_torch.core.types import PAD_ID
+
+    valid = sc.left != PAD_ID
+    packed = (sc.left[valid].long() << 32) | sc.right[valid].long()
+    packed, order = torch.sort(packed)
+    return packed, sc.level_lcs[valid][order], sc.mss[valid][order]
+
+
+def _same_scored_set(torch, got, want, tag):
+    g, w = _scored_set_on_card(torch, got), _scored_set_on_card(torch, want)
+    for name, a, b in zip(("pairs", "level_lcs", "mss"), g, w):
+        check(a.shape == b.shape and torch.equal(a, b), f"{tag}: scored {name} set differs")
+    return int(g[0].shape[0])
+
+
+def _timed_sharded(torch, dev, engine, batch):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res, counts = _run_counted(engine, batch)
+    return res, counts, time.perf_counter() - t0
+
+
+def phase_sharded(torch, dev, main_res, n=MAIN_N, shards=SHARDS):
+    """fig13's world at 1,000,000 trajectories on four shards of the card,
+    replicate, "fused" (#1 once a shard), components: the similar pairs and
+    the scored (pair, level_lcs, mss) set equal the one-shard main run's."""
+    from repro_torch.data import synthetic_setup
+    from repro_torch.kernels.lcs import fused
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    engine = _sharded_engine(dev, forest, "fused", shards, community_mode="components")
+    res, counts, wall = _timed_sharded(torch, dev, engine, batch)
+    routes = dict(fused.fused_gather_score.launches_by_route)
+    launches = shards * (engine.last_shard_retries + 1)  # one a shard a run
+    check(counts["fused_gather_score"] == launches
+          and routes == {"registers": launches, "shared": 0},
+          f"sharded: #1 launched {counts['fused_gather_score']} times on routes {routes}")
+    fig = _sharded_line(torch, dev, f"sharded N={n} n_shards={shards} replicate fused", engine,
+                        res, counts, wall)
+    check(res.stats["join_overflow"] == 0, "sharded: overflow")
+    check(bool(torch.isfinite(res.scored.mss).all()), "sharded: non-finite mss")
+    check(res.similar_pairs == main_res.similar_pairs, "sharded: similar pairs != one shard's")
+    scored = _same_scored_set(torch, res.scored, main_res.scored, "sharded")
+    log(f"sharded: {len(res.similar_pairs)} similar pairs and the scored set of {scored} "
+        f"(pair, level_lcs, mss) equal the one-shard run's; {len(res.communities)} components")
+    return counts, fig
+
+
+def phase_sharded_shuffle(torch, dev, n=KERNEL_N, shards=SHARDS, chunks=4):
+    """Shuffle mode with the prune and four chunks on four shards of the card
+    against the one-shard engine with the prune: similar pairs,
+    communities and the scored set."""
+    from repro_torch.data import synthetic_setup
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    engine = _sharded_engine(dev, forest, "fused", shards, mode="shuffle", oc=chunks,
+                             score_prune=True, rho=PRUNE_RHO, community_mode="components")
+    res, counts, wall = _timed_sharded(torch, dev, engine, batch)
+    # past the exact-pair limit the plan takes the uniform bound, and a
+    # chunk's resting buffer can overflow (owner(right) leans to the last
+    # shards): a retry doubles every capacity and scores again
+    runs = engine.last_shard_retries + 1
+    check(counts["fused_gather_score"] == shards * chunks * runs,
+          f"sharded shuffle: #1 launched {counts['fused_gather_score']} times in {runs} runs")
+    fig = _sharded_line(torch, dev, f"sharded shuffle N={n} n_shards={shards} "
+                        f"overlap_chunks={chunks} prune fused", engine, res, counts, wall)
+    want = _engine(dev, forest, "fused", rho=PRUNE_RHO, score_prune=True,
+                   community_mode="components").run(batch)
+    check(res.stats["join_overflow"] == 0, "sharded shuffle: overflow")
+    check(res.stats["num_pruned"] > 0, "sharded shuffle: the prune dropped nothing")
+    check(res.stats["num_pruned"] == want.stats["num_pruned"], "sharded shuffle: pruned count")
+    check(res.similar_pairs == want.similar_pairs and res.communities == want.communities,
+          "sharded shuffle: similar pairs or communities != one shard's")
+    scored = _same_scored_set(torch, res.scored, want.scored, "sharded shuffle")
+    log(f"sharded shuffle: == the one-shard engine with the prune ({scored} scored pairs, "
+        f"{res.stats['num_pruned']} pruned, {len(res.similar_pairs)} similar)")
+    return counts, fig
+
+
+def phase_sharded_subtraj(torch, dev, sub_res, n=SUB_N, shards=SHARDS):
+    """The subtrajectory mode (W = 8) at 100,000 trajectories on four shards
+    of the card, replicate, "fused" (#3 once a shard), against the one-shard
+    subtrajectory run: the folded scored buffer, similar pairs and
+    communities."""
+    from repro_torch.data import synthetic_setup
+    from repro_torch.kernels.lcs import fused
+
+    batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev, **SUB_ROWS)
+    engine = _sharded_engine(dev, forest, "fused", shards, subtraj_window=SUB_WINDOW,
+                             community_mode="components")
+    res, counts, wall = _timed_sharded(torch, dev, engine, batch)
+    routes = dict(fused.fused_windowed_gather_score.launches_by_route)
+    launches = shards * (engine.last_shard_retries + 1)  # one a shard a run
+    check(counts["fused_windowed_gather_score"] == launches
+          and routes == {"registers": launches, "shared": 0},
+          f"sharded subtraj: #3 launched on routes {routes}")
+    fig = _sharded_line(torch, dev, f"sharded subtraj N={n} W={SUB_WINDOW} n_shards={shards}",
+                        engine, res, counts, wall)
+    check(res.stats["join_overflow"] == 0, "sharded subtraj: overflow")
+    check(res.stats["num_window_pairs"] == sub_res.stats["num_window_pairs"],
+          "sharded subtraj: window pair count differs")
+    for field in ("left", "right", "level_lcs", "mss"):
+        check(torch.equal(getattr(res.scored, field), getattr(sub_res.scored, field)),
+              f"sharded subtraj: folded {field} != the one-shard run's")
+    check(res.similar_pairs == sub_res.similar_pairs and res.communities == sub_res.communities,
+          "sharded subtraj: similar pairs or communities != one shard's")
+    log(f"sharded subtraj: == the one-shard run ({res.stats['num_traj_pairs']} trajectory pairs "
+        f"from {res.stats['num_window_pairs']} window pairs, {len(res.similar_pairs)} similar)")
+    return counts, fig
+
+
 
 # ---------------------------------------------------------------------------
 # LM serving: flash attention (#6) and the SSD intra-chunk step (#7)
@@ -2816,7 +3115,20 @@ def main() -> int:
     phase_windowed_kernel(torch, dev)
     phase_fig1(dev)
     phase_small(torch, dev)
-    _, main_counts, main_inputs, main_figures = phase_main(torch, dev)
+    t0 = time.perf_counter()
+    sharded_paths = {"sharded small": phase_sharded_small(torch, dev)}
+    sharded_seconds = {"sharded small": time.perf_counter() - t0}
+    main_res, main_counts, main_inputs, main_figures = phase_main(torch, dev)
+    t0 = time.perf_counter()
+    sharded_figures = {}
+    sharded_paths["sharded"], sharded_figures["sharded"] = phase_sharded(torch, dev, main_res)
+    sharded_seconds["sharded"] = time.perf_counter() - t0
+    del main_res
+    t0 = time.perf_counter()
+    sharded_paths["sharded shuffle"], sharded_figures["sharded shuffle"] = \
+        phase_sharded_shuffle(torch, dev)
+    sharded_seconds["sharded shuffle"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     kernel_counts, kernel_routes, kernel_operands = phase_kernel_path(torch, dev)
     entries = phase_timing(torch, main_inputs, main_counts, main_figures, kernel_operands,
                            kernel_counts, kernel_routes, figures)
@@ -2824,7 +3136,13 @@ def main() -> int:
     main_types = (codes[:, 0, :].contiguous(), lengths)
     del main_inputs, kernel_operands, codes
     phase_subtraj_small(torch, dev)
-    sub_counts, sub_coords, sub_types, sub_routes = phase_subtraj(torch, dev)
+    sub_counts, sub_coords, sub_types, sub_routes, sub_res = phase_subtraj(torch, dev)
+    t0 = time.perf_counter()
+    sharded_paths["sharded subtraj"], sharded_figures["sharded subtraj"] = \
+        phase_sharded_subtraj(torch, dev, sub_res)
+    sharded_seconds["sharded subtraj"] = time.perf_counter() - t0
+    del sub_res
+    torch.cuda.empty_cache()
     _, sub_kernel_routes, sub_kernel_operands = phase_subtraj_kernel_path(torch, dev)
     phase_timing_lcs_windows(torch, entries, sub_kernel_operands, sub_kernel_routes)
     del sub_kernel_operands
@@ -2862,6 +3180,13 @@ def main() -> int:
     for e in entries:
         if e["name"] in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
             e["launches_streaming_serving"] = {path: c.get(e["name"], 0) for path, c in new_paths.items()}
+        if e["name"] in ("fused_gather_score", "lcs_kernel", "fused_windowed_gather_score",
+                         "minhash_kernel"):
+            e["launches_sharded"] = {path: c.get(e["name"], 0) for path, c in sharded_paths.items()}
+    for name in ("fused_gather_score", "lcs_kernel", "fused_windowed_gather_score", "minhash_kernel"):
+        check(sum(c[name] for c in sharded_paths.values()) > 0,
+              f"kernel {name} was launched on no sharded path")
+    log(json.dumps({"sharded": sharded_figures, "sharded_phase_s": sharded_seconds}))
     log(json.dumps({"stream_updates": stream_figures["updates"], "serve": serve_figures,
                     "stream_device_updates": device_figures["updates"],
                     "serve_device": serve_device_figures}))

@@ -5,6 +5,10 @@
     engine = AnotherMeEngine(forest, EngineConfig(backend="ssh"))
     result = engine.run(batch)        # .similar_pairs / .communities / .stats
 
+    engine = AnotherMeEngine(forest, EngineConfig(),
+                             ExecutionPlan(n_shards=4, devices=("cuda:0",) * 4))
+    result = engine.run(batch)        # the sharded pipeline, same result
+
     stream = StreamingEngine(forest, EngineConfig(community_mode="components"))
     result = stream.update(micro_batch)   # the current world's result
     top = QueryEngine(stream, k=10).query(query_batch)  # .match_ids / .mss
@@ -19,6 +23,12 @@ from repro_torch.api.engine import AnotherMeEngine, EngineConfig, EngineResult, 
 from repro_torch.api.errors import CapacityExceeded, NotPortedError
 from repro_torch.api.instrumentation import Instrumentation
 from repro_torch.api.serving import QueryEngine, QueryPlan, QueryResult
+from repro_torch.api.sharded import (
+    DistributedPlan, StreamJoinPlan, StreamShardPlan, gather_similar_pairs,
+    make_distributed_anotherme, make_sharded_pipeline,
+    make_streaming_join_pipeline, make_streaming_score_pipeline,
+    pad_to_shards, plan_capacities, plan_stream_join, sticky_join_plan,
+)
 from repro_torch.api.stages import (
     LCS_IMPLS, CandidateStage, CommunitiesStage, EncodeStage, PipelineContext,
     ScoreStage, Stage, lcs_impl_fn, validate_lcs_impl,

@@ -72,19 +72,21 @@ def _windowed_view(types, lengths, ctx: BackendContext):
 class CandidateBackend:
     """Protocol/base for candidate generation.
 
-    Subclasses implement :meth:`join_keys` (the shared join and capacity
-    planner then apply), or keep the base one, which returns None, and
-    override :meth:`candidates` directly.
+    Subclasses implement :meth:`join_keys` (the shared join, capacity
+    planner and sharded execution then apply), or keep the base one, which
+    returns None, and override :meth:`candidates` directly.
+    :meth:`shard_key_fn` optionally builds the same keys per shard inside
+    the sharded program.
     """
 
     name: str = "?"
 
     @property
     def supports_sharded(self) -> bool:
-        """Whether the backend produces join keys.  The JAX package runs
-        such backends sharded and key-less ones on one device only; the port
-        is single-device, and the engine reads the flag to refuse key-less
-        backends in the subtrajectory mode."""
+        """Whether the backend produces join keys: key-producing backends
+        run sharded (their ``shard_key_fn`` per shard, or their host keys
+        shuffled in) and in the subtrajectory mode; the engine refuses
+        key-less ones in both."""
         return type(self).join_keys is not CandidateBackend.join_keys
 
     def join_keys(
@@ -109,6 +111,13 @@ class CandidateBackend:
         keys = self.join_keys(encoded, batch, ctx)
         return ssh_candidates(keys, pair_capacity=pair_capacity)
 
+    def shard_key_fn(self, ctx: BackendContext) -> Callable | None:
+        """``(local_type_codes [n, L], local_lengths [n]) -> keys [n, S]``,
+        run per shard inside the sharded program on the shard's own
+        encodings; None makes the engine build the keys on the host and
+        shuffle them in."""
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class SSHBackend(CandidateBackend):
@@ -118,11 +127,17 @@ class SSHBackend(CandidateBackend):
     name: str = dataclasses.field(default="ssh", init=False)
 
     def join_keys(self, encoded, batch, ctx):
-        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
-        return shingles_from_types(
-            types, lengths,
-            k=ctx.k, num_types=ctx.num_types, dedup=self.dedup,
-        )
+        return self.shard_key_fn(ctx)(type_codes(encoded), encoded.lengths)
+
+    def shard_key_fn(self, ctx):
+        def key_fn(local_types, local_lengths):
+            types, lengths = _windowed_view(local_types, local_lengths, ctx)
+            return shingles_from_types(
+                types, lengths,
+                k=ctx.k, num_types=ctx.num_types, dedup=self.dedup,
+            )
+
+        return key_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,9 +155,15 @@ class MinHashBackend(CandidateBackend):
     name: str = dataclasses.field(default="minhash", init=False)
 
     def join_keys(self, encoded, batch, ctx):
-        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
-        sig = minhash_signatures(types, lengths, num_perm=self.num_perm, seed=self.seed)
-        return minhash_band_keys(sig, bands=self.bands)
+        return self.shard_key_fn(ctx)(type_codes(encoded), encoded.lengths)
+
+    def shard_key_fn(self, ctx):
+        def key_fn(local_types, local_lengths):
+            types, lengths = _windowed_view(local_types, local_lengths, ctx)
+            sig = minhash_signatures(types, lengths, num_perm=self.num_perm, seed=self.seed)
+            return minhash_band_keys(sig, bands=self.bands)
+
+        return key_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,12 +176,18 @@ class BRPBackend(CandidateBackend):
     name: str = dataclasses.field(default="brp", init=False)
 
     def join_keys(self, encoded, batch, ctx):
-        types, lengths = _windowed_view(type_codes(encoded), encoded.lengths, ctx)
-        return brp_bucket_keys(
-            types, lengths,
-            num_types=ctx.num_types, num_proj=self.num_proj,
-            bucket_length=self.bucket_length, seed=self.seed,
-        )
+        return self.shard_key_fn(ctx)(type_codes(encoded), encoded.lengths)
+
+    def shard_key_fn(self, ctx):
+        def key_fn(local_types, local_lengths):
+            types, lengths = _windowed_view(local_types, local_lengths, ctx)
+            return brp_bucket_keys(
+                types, lengths,
+                num_types=ctx.num_types, num_proj=self.num_proj,
+                bucket_length=self.bucket_length, seed=self.seed,
+            )
+
+        return key_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,7 +195,9 @@ class UDFBackend(CandidateBackend):
     """The "user-defined" black box: shingle keys built row-at-a-time in
     host Python (the same base-Q pack as "ssh", so the results are
     identical), invisible to every kernel; the keys then go to the engine's
-    device for the shared join."""
+    device for the shared join.  ``shard_key_fn`` is None: a sharded run
+    computes these keys on the host and shuffles them in, the Spark-driver
+    wall the paper measures in Fig. 7 (encoding still runs per shard)."""
 
     name: str = dataclasses.field(default="udf", init=False)
 

@@ -73,6 +73,40 @@ class CapacityPlanner:
             cand = build(capacity)
         return cand, capacity
 
+    def plan_sharded(
+        self,
+        keys_np,
+        n_shards: int,
+        *,
+        slack: float | None = None,
+        score_mode: str = "replicate",
+        lengths_np=None,
+        prune_tau: float | None = None,
+        betas_sum: float = 1.0,
+        overlap_chunks: int = 1,
+        windows_per_row: int = 1,
+    ):
+        """Exact per-bucket capacity plan for the sharded path.
+
+        Delegates to :func:`repro_torch.api.sharded.plan_capacities`, which
+        sizes every stage — shuffle 1, the local join, the pair-dedup
+        shuffle and (``score_mode="shuffle"``) the per-owner code-gather
+        hops — from the actual per-destination loads under the device's own
+        hashes.  ``slack`` defaults to this planner's slack.  With
+        ``prune_tau``/``lengths_np`` the plan also sizes the post-prune
+        buffer; ``windows_per_row > 1`` declares subtrajectory keys (one
+        key row per window, ``lengths_np`` per window).
+        """
+        from repro_torch.api.sharded import plan_capacities
+
+        return plan_capacities(
+            keys_np, n_shards,
+            slack=self.slack if slack is None else slack,
+            score_mode=score_mode,
+            lengths_np=lengths_np, prune_tau=prune_tau, betas_sum=betas_sum,
+            overlap_chunks=overlap_chunks, windows_per_row=windows_per_row,
+        )
+
     def plan_stream_join(self, keys_flat, n_shards: int, stats, *, floor_pow2: int = 4):
         """Exact per-owner capacity plan for the streaming delta join
         (``delta_join="device"``).

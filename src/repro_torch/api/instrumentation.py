@@ -3,7 +3,7 @@
 The stages call ``repro_torch.core.device.synchronize`` on their outputs
 before a phase ends, so these host-clock times include the card's work.
 
-Stats key conventions (the JAX engine's, single-device subset):
+Stats key conventions (the JAX engine's):
 
   t_encode       phase (i)   semantic encoding
   t_keys         phase (ii)a join-key construction (shingles)
@@ -16,6 +16,12 @@ Stats key conventions (the JAX engine's, single-device subset):
   t_communities  phase (iv)  community detection
   t_total        sum of every t_* phase above
   t_shingle      legacy alias of t_keys
+
+Sharded runs fuse the join and score phases into one program; they record
+``t_plan`` (host capacity planning) and ``t_execute`` (the sharded program)
+instead of ``t_join``/``t_score``, and ``t_candidates`` then covers keys +
+plan + execute (``t_score`` reads 0.0: the score cost is inside
+``t_execute``).
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ class Instrumentation:
         s.setdefault("t_keys", 0.0)
         if "t_join" in s:
             s["t_candidates"] = s["t_keys"] + s["t_join"]
+        elif "t_execute" in s:  # sharded: join+score fused into one program
+            s["t_candidates"] = s["t_keys"] + s.get("t_plan", 0.0) + s["t_execute"]
+            s.setdefault("t_score", 0.0)
         s["t_shingle"] = s["t_keys"]  # legacy alias
         s["t_total"] = sum(
             v for k, v in s.items()

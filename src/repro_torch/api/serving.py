@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.api.errors import CapacityExceeded
 from repro_torch.api.sharded import (
-    _one_shard, _positive_hash, _positive_hash_np, _pow2, _route,
+    _one_shard, _positive_hash, _positive_hash_np, _pow2, _scatter,
 )
 from repro_torch.core.device import to_numpy
 from repro_torch.core.device_index import _sort2, flat_row_keys, probe_rows
@@ -351,7 +351,8 @@ def make_query_probe_pipeline(plan: QueryPlan, *, trace_counter: list | None = N
     n_shards = plan.n_shards
 
     def run(slab_keys, slab_rows, keys, qids):
-        (rk, rq), o1 = _route(
+        # at one shard the all_to_all of the key route is the identity
+        (rk, rq), o1 = _scatter(
             (keys, qids), _positive_hash(keys) % n_shards, keys != PAD_KEY,
             n_shards=n_shards, capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
         )

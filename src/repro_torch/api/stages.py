@@ -30,7 +30,7 @@ window ids: "fused*" run the windowed fused scorer
 (fused_windowed_score.cu on a CUDA tensor), the kernel family slices the
 windows and runs the same LCS kernel over width-W rows, and "wavefront" and
 "ref" gather the windows.  The scored window pairs are then folded to
-trajectory pairs on the host (``core/subtraj.aggregate_window_pairs``).
+trajectory pairs on the buffers' device (``core/subtraj.aggregate_window_pairs``).
 """
 from __future__ import annotations
 
@@ -241,8 +241,7 @@ class ScoreStage:
             # windows); downstream stages and the result speak traj ids
             with ctx.instr.phase("aggregate"):
                 tl, tr, tlvl, tmss = aggregate_window_pairs(
-                    _np(cand.left), _np(cand.right), _np(level_lcs), _np(mss),
-                    nw=subtraj[2],
+                    cand.left, cand.right, level_lcs, mss, nw=subtraj[2],
                 )
                 ctx.similar_pairs = {
                     (int(a), int(b))

@@ -87,8 +87,12 @@ def aggregate_window_pairs(left, right, level_lcs, mss, *, nw: int):
     surviving pair reports the WINNING window pair's integer level_lcs row
     and float32 mss, mss ties broken to the lexicographically smallest
     ``(window_lo, window_hi)`` — so the aggregate does not depend on the
-    order the pairs were scored in.  Runs on the host, in numpy.
+    order the pairs were scored in.  numpy arrays fold on the host;
+    tensors fold on their device (:func:`_aggregate_tensors`, the same
+    order by the same keys).  Returns numpy arrays either way.
     """
+    if isinstance(left, torch.Tensor):
+        return _aggregate_tensors(left, right, level_lcs, mss, nw=nw)
     left = np.asarray(left).reshape(-1)
     right = np.asarray(right).reshape(-1)
     level_lcs = np.asarray(level_lcs).reshape(left.shape[0], -1)
@@ -113,3 +117,28 @@ def aggregate_window_pairs(left, right, level_lcs, mss, *, nw: int):
     winners = order[rows]
     return (lo[rows].astype(np.int32), hi[rows].astype(np.int32),
             lv[winners], ms[winners])
+
+
+def _aggregate_tensors(left, right, level_lcs, mss, *, nw: int):
+    """:func:`aggregate_window_pairs` on tensors, on their device: numpy's
+    ``lexsort((wr, wl, -ms, hi, lo))`` as three stable sorts, from the least
+    significant key up, of (window_lo, window_hi) and (lo, hi) packed into
+    int64 (every id is non-negative) and of ``-mss``."""
+    left, right = left.reshape(-1), right.reshape(-1)
+    level_lcs = level_lcs.reshape(left.shape[0], -1)
+    mss = mss.reshape(-1)
+    ta, tb = left // nw, right // nw
+    keep = (left != PAD_ID) & (ta != tb)
+    wl, wr = left[keep].long(), right[keep].long()
+    lv, ms = level_lcs[keep], mss[keep]
+    lo = torch.minimum(ta[keep], tb[keep]).long()
+    hi = torch.maximum(ta[keep], tb[keep]).long()
+    order = torch.sort((wl << 32) | wr, stable=True).indices
+    order = order[torch.sort(-ms[order], stable=True).indices]
+    pair, by_pair = torch.sort(((lo << 32) | hi)[order], stable=True)
+    order = order[by_pair]
+    first = torch.ones_like(pair, dtype=torch.bool)
+    first[1:] = pair[1:] != pair[:-1]
+    winners = order[first]
+    return (lo[winners].to(torch.int32).cpu().numpy(), hi[winners].to(torch.int32).cpu().numpy(),
+            lv[winners].cpu().numpy(), ms[winners].cpu().numpy())

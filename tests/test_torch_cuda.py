@@ -777,3 +777,56 @@ def test_slab_op_on_the_card_equals_cpu(cuda, op):
     for got, want in zip(outs[cuda], outs["cpu"]):
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert torch.equal(got.cpu(), want), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,mode,oc,prune,window,impl,launched", [
+    ("ssh", "replicate", 1, False, None, "fused", "fused_gather_score"),
+    ("ssh", "shuffle", 4, True, None, "fused", "fused_gather_score"),
+    ("ssh", "shuffle", 1, False, None, "kernel", "lcs_kernel"),
+    ("ssh", "replicate", 1, True, 8, "fused", "fused_windowed_gather_score"),
+    ("ssh", "shuffle", 4, False, 8, "fused", "fused_windowed_gather_score"),
+    ("minhash", "replicate", 1, False, None, "fused", "minhash_kernel"),
+    ("udf", "shuffle", 1, False, None, "fused", "fused_gather_score"),
+])
+def test_sharded_engine_on_the_card_equals_cpu(cuda, backend, mode, oc, prune, window, impl,
+                                               launched):
+    """Four shards on the one card against the same plan on four CPU
+    shards (plain versions): every per-shard buffer, the similar pairs and
+    the communities; the path's kernel launched once a shard at least."""
+    from repro_torch.api import ExecutionPlan
+    from repro_torch.api import engine as tengine
+
+    wrappers = {"fused_gather_score": tfused.fused_gather_score, "lcs_kernel": tkernel.lcs_kernel,
+                "fused_windowed_gather_score": tfused.fused_windowed_gather_score,
+                "minhash_kernel": tmhk.minhash_kernel}
+    results = {}
+    for dev in ("cpu", cuda):
+        batch, forest = synthetic_setup(1_001, num_types=30, seed=5, device=dev,
+                                        **({"min_len": 10, "max_len": 20} if window else {}))
+        plan = ExecutionPlan(n_shards=4, devices=(dev,) * 4, score_mode=mode, overlap_chunks=oc)
+        cfg = EngineConfig(backend=backend, score_prune=prune, subtraj_window=window,
+                           lcs_impl=impl, community_mode="components")
+        eng = AnotherMeEngine(forest, cfg, plan, device=dev)
+        captured = {}
+        execute = tengine._ShardedEncodeJoinScoreStage._execute
+
+        def capture(self, *a, **k):
+            out = execute(self, *a, **k)
+            captured["out"] = out[0]
+            return out
+
+        tengine._ShardedEncodeJoinScoreStage._execute = capture
+        try:
+            wrappers[launched].launches = 0
+            res = eng.run(batch)
+        finally:
+            tengine._ShardedEncodeJoinScoreStage._execute = execute
+        results[str(dev)] = (res, {k: v.cpu() for k, v in captured["out"].items()},
+                             wrappers[launched].launches)
+    (want, want_out, _), (got, got_out, launches) = results["cpu"], results[str(cuda)]
+    assert launches >= 4 if launched != "minhash_kernel" else launches >= 5
+    for field in want_out:
+        assert torch.equal(got_out[field], want_out[field]), field
+    assert got.similar_pairs == want.similar_pairs and got.communities == want.communities
+    assert got.stats["join_overflow"] == 0 and len(want.similar_pairs) > 0

@@ -8,6 +8,8 @@ bit-equal (tolerance 0; both round MSS as one forward FMA chain).  The JAX
 reference runs ``lcs_impl="wavefront"``: its own parity matrix pins every
 JAX impl to that one, and its Pallas interpret mode would be slow here.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -186,16 +188,27 @@ def test_cpu_engine_never_launches_kernels(worlds):
 # typed errors and guards
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("plan,config", [
-    (ExecutionPlan(n_shards=2), EngineConfig()),
+    (ExecutionPlan(n_shards=2, devices=(CPU, CPU)), EngineConfig()),
     (ExecutionPlan(autotune=True), EngineConfig()),
-    (ExecutionPlan(n_shards=2, delta_join="device"), EngineConfig()),
-    (ExecutionPlan(overlap_chunks=2), EngineConfig()),
-    (ExecutionPlan(n_shards=2), EngineConfig(subtraj_window=4)),
+    (ExecutionPlan(n_shards=2, delta_join="device", devices=(CPU, CPU)), EngineConfig()),
+    (ExecutionPlan(n_shards=2, score_mode="shuffle", overlap_chunks=2, devices=(CPU, CPU)),
+     EngineConfig()),
+    (ExecutionPlan(n_shards=2, devices=(CPU, CPU)), EngineConfig(subtraj_window=4)),
 ])
 def test_unported_features_raise_typed_errors(plan, config):
-    _, forest = fig1_world(device=CPU)
-    with pytest.raises(NotPortedError):
-        AnotherMeEngine(forest, config, plan, device=CPU)
+    """What the JAX engine runs either runs here too (the sharded plans:
+    the one-shard engine's similar pairs and communities) or raises a
+    typed error (autotuning)."""
+    batch, forest = fig1_world(device=CPU)
+    config = dataclasses.replace(config, rho=3.0)
+    if plan.autotune:
+        with pytest.raises(NotPortedError):
+            AnotherMeEngine(forest, config, plan, device=CPU)
+        return
+    got = AnotherMeEngine(forest, config, plan, device=CPU).run(batch)
+    want = AnotherMeEngine(forest, config, device=CPU).run(batch)
+    assert got.similar_pairs == want.similar_pairs and got.communities == want.communities
+    assert got.stats["shard_plan"]["n_shards"] == 2
 
 
 def test_registry_and_option_errors():

@@ -208,6 +208,34 @@ def test_aggregate_window_pairs_equals_jax_on_random_ties():
         assert_same(g, w)
 
 
+@pytest.mark.parametrize("case", ["random ties", "tie break and filtering", "empty"])
+def test_aggregate_window_pairs_on_tensors_equals_jax(case):
+    """The fold on tensors (the engines' path, on the buffers' device) gives
+    the JAX package's numpy fold, arrays and dtypes."""
+    rng = np.random.default_rng(7)
+    if case == "random ties":
+        P, nw = 20000, 5
+        left = rng.integers(0, 400, size=P).astype(np.int32)
+        right = rng.integers(0, 400, size=P).astype(np.int32)
+        left[rng.random(P) < 0.1] = PAD_ID
+        lvl = rng.integers(0, 5, size=(P, 3)).astype(np.int32)
+        mss = (rng.integers(0, 6, size=P) / 2).astype(np.float32)
+    else:
+        nw = 3
+        left = np.array([PAD_ID, 3, 5, 4, 3], np.int32)
+        right = np.array([0, 4, 6, 7, 8], np.int32)
+        lvl = np.array([[9], [5], [4], [2], [1]], np.int32)
+        mss = np.array([9.0, 1.0, 2.0, 2.0, 1.5], np.float32)
+        if case == "empty":
+            left, right, lvl, mss = left[:2], right[:2], lvl[:2], mss[:2]
+    got = tsub.aggregate_window_pairs(*(torch.as_tensor(a) for a in (left, right, lvl, mss)),
+                                      nw=nw)
+    want = jsub.aggregate_window_pairs(left, right, lvl, mss, nw=nw)
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray) and g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("window,stride", [(5, 1), (4, 2), (3, 3), (16, 1)])
 def test_windowed_types_and_keys_bit_equal(window, stride):
     rng = np.random.default_rng(window * 10 + stride)
