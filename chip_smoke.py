@@ -137,6 +137,28 @@ phases, and exits non-zero if any phase fails:
 18. serve device — the serve phase's query batches over that device-join
    world: every answer equals the host-join world's, and the host index is
    never probed; queries per second and probe counts are logged.
+18a. stream sharded small — the stream small phase's feed on 2, 3 and 4
+   shards of the card (``ExecutionPlan(n_shards=n, devices=(card,) * n)``):
+   the host join in replicate and shuffle (``overlap_chunks`` 1 and 4), the
+   device join in replicate and shuffle with ``score_prune``, "fused" (#1),
+   "kernel" (#2) and "minhash" (#5) once; at every update equal to the
+   card's one-shard stream of the same join (scored buffer slot by slot,
+   similar pairs, communities, pairs examined) and to the same plan on CPU
+   shards (plain versions).
+18b. stream sharded — the stream phase's feed on four shards, host join,
+   replicate, "fused" (#1 once a shard an update): every update examines
+   the one-shard stream's pairs and the final update equals its result;
+   per-update phase seconds and peak device memory logged.
+18c. serve sharded — the serve phase's query batches over that world: every
+   answer equals the one-shard world's; queries per second, rounds and
+   cells skipped logged.
+18d. stream device sharded — the same feed on four shards with the device
+   join, shuffle, ``overlap_chunks=4``: every update equals the one-shard
+   device join's pairs examined, the final update its result; the join's
+   split (host mirror against the join program), slabs, resident bytes,
+   peak memory and the output stack of the merged slabs (ms, bytes) logged.
+18e. serve device sharded — the serve phase's batches over that world,
+   against the one-shard world's answers.
 19. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
    64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
@@ -1641,13 +1663,15 @@ def phase_timing_minhash(torch, minhash_types, minhash_counts):
 # streaming ingestion and top-k serving over the host-join world
 # ---------------------------------------------------------------------------
 def _stream(dev, forest, impl, components_impl="unionfind", backend="ssh", window=None,
-            delta_join="host", **cfg):
+            delta_join="host", n=1, mode="replicate", oc=1, **cfg):
+    """A streaming engine on ``dev``; ``n > 1`` places its n shards there."""
     from repro_torch.api import EngineConfig, ExecutionPlan, StreamingEngine
 
     cfg.setdefault("community_mode", "components")
     cfg.setdefault("rho", RHO)
-    return StreamingEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg),
-                           ExecutionPlan(delta_join=delta_join),
+    plan = ExecutionPlan(delta_join=delta_join, n_shards=n, devices=(dev,) * n, score_mode=mode,
+                         overlap_chunks=oc)
+    return StreamingEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg), plan,
                            components_impl=components_impl, window=window, device=dev)
 
 
@@ -2186,20 +2210,24 @@ def phase_stream_device(torch, dev, batch, forest, host, n_batches=STREAM_BATCHE
     log("stream device phase sums: " + " ".join(f"{k}={v:.3f}s" for k, v in sums.items()))
     log("stream host phase sums: " + " ".join(f"{k}={v:.3f}s" for k, v in host_sums.items()))
     log(f"stream device: phase in {secs:.1f} s")
-    return stream, dict(counts=counts, updates=updates, feed_s=feed_s, phase_s=secs)
+    return stream, dict(counts=counts, updates=updates, feed_s=feed_s, phase_s=secs, final=res,
+                        retired=retired)
 
 
-def phase_serve_device(torch, dev, stream, cases):
-    """The serve phase's query batches over the device-join world: every
-    answer equals the host-join world's, and the host index is never
-    probed."""
+def phase_serve_world(torch, dev, stream, cases, name):
+    """The serve phase's query batches over another world of the same rows
+    (the device join's, or a sharded one): every answer equals the
+    one-shard host-join world's; over a device-join world the host index is
+    never probed.  Logs queries per second, candidates, probe counts and the
+    REPOSE rounds and cells skipped."""
     import numpy as np
 
     from repro_torch.api import QueryEngine
     from repro_torch.core import stream_index
 
     t0 = time.perf_counter()
-    check(stream._index.num_keys_inserted == 0, "serve device: the host index holds entries")
+    slab = stream.delta_join == "device"
+    check(not slab or stream._index.num_keys_inserted == 0, f"{name}: the host index holds entries")
     probes = []
     real = stream_index.BucketIndex.probe
     stream_index.BucketIndex.probe = lambda self, *a, **kw: (probes.append(1), real(self, *a, **kw))[1]
@@ -2213,23 +2241,225 @@ def phase_serve_device(torch, dev, stream, cases):
             expect_launched(counts, ["fused_gather_score"])
             launches.update(counts)
             check(np.array_equal(res.match_ids, want.match_ids) and np.array_equal(res.mss, want.mss),
-                  f"serve device {qname} {kname} prune={prune}: top-k != the host join's")
-            n_q = len(res.match_ids)
-            s = res.stats
+                  f"{name} {qname} {kname} prune={prune}: top-k != the one-shard host join's")
+            n_q, s = len(res.match_ids), res.stats
             figures.append(dict(queries=qname, k=kname, prune=prune, wall_s=wall, qps=n_q / wall,
                                 candidates=s["candidates"], probe_examined=s["probe_examined"],
-                                host_candidates=want.stats["candidates"]))
-            log(f"serve device {qname} {kname} prune={prune}: {n_q} queries in {wall:.3f} s = "
+                                host_candidates=want.stats["candidates"],
+                                rounds_run=s["rounds_run"], rounds_skipped=s["rounds_skipped"],
+                                cells_skipped=s["cells_skipped"]))
+            log(f"{name} {qname} {kname} prune={prune}: {n_q} queries in {wall:.3f} s = "
                 f"{n_q / wall:.1f} queries/s; candidates {s['candidates']} (host join "
                 f"{want.stats['candidates']}), probe examined {s['probe_examined']} (host join "
-                f"{want.stats['probe_examined']}), probe_traces {s['probe_traces']}; == the host "
-                f"join's answers; launches {counts}")
+                f"{want.stats['probe_examined']}), probe_traces {s['probe_traces']}, rounds_run "
+                f"{s['rounds_run']}, rounds_skipped {s['rounds_skipped']}, cells_skipped "
+                f"{s['cells_skipped']}; == the one-shard host join's answers; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
     finally:
         stream_index.BucketIndex.probe = real
-    check(not probes, f"serve device: BucketIndex.probe was called {len(probes)} times")
+    check(not (slab and probes), f"{name}: BucketIndex.probe was called {len(probes)} times")
     secs = time.perf_counter() - t0
-    log(f"serve device: phase in {secs:.1f} s, host index never probed")
+    log(f"{name}: phase in {secs:.1f} s over {stream.plan.n_shards} shards"
+        + (", host index never probed" if slab else ""))
     return dict(launches), figures, secs
+
+# ---------------------------------------------------------------------------
+# sharded streaming and serving: StreamingEngine on n shards of the card
+# ---------------------------------------------------------------------------
+# (n_shards, delta join, score_mode, overlap_chunks, lcs_impl, backend, score_prune,
+#  the kernels the card's stream must launch)
+STREAM_SHARDED_SMALL = (
+    (2, "host", "replicate", 1, "fused", "ssh", False, ["fused_gather_score"]),
+    (3, "host", "shuffle", 1, "kernel", "ssh", True, ["lcs_kernel"]),
+    (4, "host", "shuffle", 4, "fused", "ssh", False, ["fused_gather_score"]),
+    (4, "device", "replicate", 1, "fused", "minhash", False, ["minhash_kernel", "fused_gather_score"]),
+    (4, "device", "shuffle", 4, "fused", "ssh", True, ["fused_gather_score"]),
+    (3, "device", "shuffle", 1, "kernel", "ssh", False, ["lcs_kernel"]),
+    (2, "device", "replicate", 1, "kernel", "ssh", True, ["lcs_kernel"]),
+)
+
+
+def _on_card(stream):
+    kinds = {d.type for d in stream._eng.mesh().devices}
+    check(kinds == {"cuda"}, f"shards placed on {kinds}")
+
+
+def phase_stream_sharded_small(torch, dev, n=STREAM_SMALL_N, n_batches=5):
+    """The stream small phase's feed (window 3, a TTL of 2, a retire, a
+    compaction) on 2, 3 and 4 shards of the card, both joins, both score
+    modes: at every update equal to the card's one-shard stream of the same
+    join (scored buffer slot by slot, similar pairs, communities, pairs
+    examined) and to the same plan on CPU shards (plain versions)."""
+    from repro_torch.data import synthetic_setup
+
+    t0 = time.perf_counter()
+    cpu_batch, forest = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device="cpu")
+    batch, _ = synthetic_setup(n, num_types=NUM_TYPES, seed=0, device=dev)
+    feed = dict(retire_after=2, ttl_of=lambda u: 2 if u == 1 else None)
+    one_shard, launches = {}, collections.Counter()
+    for shards, join, mode, oc, impl, backend, prune, kernels in STREAM_SHARDED_SMALL:
+        tag = f"stream sharded small n_shards={shards} {join} join {mode} overlap_chunks={oc} {impl} {backend} prune={prune}"
+        cfg = dict(score_prune=True, rho=PRUNE_RHO) if prune else {}
+        key = (join, backend, prune)
+        if key not in one_shard:
+            one_shard[key] = []
+            _feed(_stream(dev, forest, "fused", backend=backend, window=3, delta_join=join, **cfg),
+                  batch, n_batches, per_update=lambda u, r, k=key: one_shard[k].append(r), **feed)
+        cpus = []
+        _feed(_stream("cpu", forest, impl, backend=backend, window=3, delta_join=join, n=shards,
+                      mode=mode, oc=oc, **cfg),
+              cpu_batch, n_batches, per_update=lambda u, r: cpus.append(r), **feed)
+        stream = _stream(dev, forest, impl, backend=backend, window=3, delta_join=join, n=shards,
+                         mode=mode, oc=oc, **cfg)
+        _on_card(stream)
+
+        def check_update(u, res, tag=tag, key=key, cpus=cpus):
+            one = one_shard[key][u]
+            _same_stream_result(res, one, f"{tag} update {u} (vs one shard)")
+            check(res.stats["pairs_examined"] == one.stats["pairs_examined"],
+                  f"{tag} update {u}: pairs examined != one shard's")
+            _same_stream_result(res, cpus[u], f"{tag} update {u} (vs CPU shards)")
+            check(res.stats["join_overflow"] == 0, f"{tag} update {u}: overflow")
+
+        (res, _), counts = _counted(lambda: _feed(stream, batch, n_batches, per_update=check_update,
+                                                  **feed))
+        expect_launched(counts, kernels)
+        check(res.stats["compactions"] >= 1 and stream._base % shards == 0,
+              f"{tag}: compactions {res.stats['compactions']}, base {stream._base}")
+        pruned = sum(r.stats.get("num_pruned", 0) for r in one_shard[key])
+        check(pruned > 0 or not prune, f"{tag}: nothing pruned")
+        check(max(r.stats["num_candidates"] for r in cpus) > 0, f"{tag}: nothing scored")
+        launches.update(counts)
+        log(f"{tag}: N={n} in {n_batches} updates == the card's one-shard stream == CPU shards at "
+            f"every update ({res.stats['num_candidates']} scored, {pruned} pruned, "
+            f"{res.stats['compactions']} compactions, base {stream._base}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    secs = time.perf_counter() - t0
+    log(f"stream sharded small: {len(STREAM_SHARDED_SMALL)} plans in {secs:.1f} s")
+    return dict(launches), secs
+
+
+def _sharded_feed(torch, dev, stream, batch, n_batches, tag, one, extra=None):
+    """Feed fig13's schedule into a sharded stream, checking each update's
+    pairs examined against the one-shard stream's; returns the last result,
+    the retired ids, launch counts, per-update rows, feed seconds and peak
+    device memory (GiB)."""
+    updates = []
+
+    def per_update(u, r):
+        s = r.stats
+        check(s["pairs_examined"] == one["updates"][u]["pairs_examined"],
+              f"{tag} update {u}: pairs examined {s['pairs_examined']} != one shard's "
+              f"{one['updates'][u]['pairs_examined']}")
+        check(s["join_overflow"] == 0, f"{tag} update {u}: overflow")
+        row = {k: s.get(k, 0.0) for k in STREAM_PHASE_KEYS + STREAM_UPDATE_KEYS}
+        if extra is not None:
+            row.update(extra(u, r))
+        updates.append(row)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_feed = time.perf_counter()
+    (res, retired), counts = _counted(lambda: _feed(stream, batch, n_batches, retire_after=7,
+                                                    tag=tag, per_update=per_update))
+    feed_s = time.perf_counter() - t_feed
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(retired == one["retired"], f"{tag}: retired other ids than one shard")
+    _same_stream_result(res, one["final"], f"{tag}: final update vs one shard")
+    check(stream.compactions >= 1 and stream._base % stream.plan.n_shards == 0,
+          f"{tag}: compactions {stream.compactions}, base {stream._base}")
+    sums = {k: sum(u[k] for u in updates) for k in STREAM_PHASE_KEYS + ("t_total",)}
+    log(f"{tag}: {n_batches} updates in {feed_s:.3f} s (one shard {one['feed_s']:.3f} s), "
+        f"{stream.compactions} compactions, base {stream._base}, {len(retired)} retired; final "
+        f"update == one shard's (scored slot by slot, {len(res.similar_pairs)} similar, "
+        f"{len(res.communities)} communities); peak device memory {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"{tag} phase sums: " + " ".join(f"{k}={v:.3f}s" for k, v in sums.items()))
+    return res, counts, updates, feed_s, peak
+
+
+def phase_stream_sharded(torch, dev, batch, forest, host, n_batches=STREAM_BATCHES, shards=SHARDS):
+    """fig13's stream (10 x 20,000, window 4, 1% retired after update 7) on
+    four shards of the card, host join, replicate, "fused": every update
+    examines the one-shard host join's pairs, and the final update equals
+    its result."""
+    t0 = time.perf_counter()
+    stream = _stream(dev, forest, "fused", window=STREAM_WINDOW, n=shards)
+    _on_card(stream)
+    tag = f"stream sharded N={batch.num_trajectories} n_shards={shards} host join replicate"
+    res, counts, updates, feed_s, peak = _sharded_feed(torch, dev, stream, batch, n_batches, tag,
+                                                       host)
+    expect_launched(counts, ["fused_gather_score"])
+    check(counts["fused_gather_score"] == shards * n_batches,
+          f"{tag}: #1 launched {counts['fused_gather_score']} times (one a shard an update)")
+    secs = time.perf_counter() - t0
+    log(f"stream sharded: phase in {secs:.1f} s")
+    return stream, dict(counts=counts, updates=updates, feed_s=feed_s, phase_s=secs, peak_gib=peak)
+
+
+def _stack_ms(torch, stream, reps=5):
+    """CUDA-event median of the join program's output stack of the merged
+    slabs (``mesh.stack`` of the shards' keys and rows), at the stream's
+    slab; returns (ms, bytes it writes)."""
+    mesh, n = stream._eng.mesh(), stream.plan.n_shards
+    keys = list(stream._slab_keys.reshape(n, -1).clone())
+    rows = list(stream._slab_rows.reshape(n, -1).clone())
+    times = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        mesh.stack(keys)
+        mesh.stack(rows)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:]), 2 * stream._slab_keys.numel() * 4
+
+
+def phase_stream_device_sharded(torch, dev, batch, forest, device, n_batches=STREAM_BATCHES,
+                                shards=SHARDS, chunks=4):
+    """fig13's stream on four shards of the card, device join, shuffle,
+    ``overlap_chunks=4``, "fused": every update examines the one-shard device
+    join's pairs, and the final update equals its result.  Logs each update's
+    join split (host mirror against the join program), slab, resident bytes,
+    and the output stack of the merged slabs."""
+    t0 = time.perf_counter()
+    stream = _stream(dev, forest, "fused", window=STREAM_WINDOW, delta_join="device", n=shards,
+                     mode="shuffle", oc=chunks)
+    _on_card(stream)
+    tag = (f"stream device sharded N={batch.num_trajectories} n_shards={shards} device join "
+           f"shuffle overlap_chunks={chunks}")
+
+    def extra(u, r):
+        t = stream.join_timing
+        row = dict(mirror_s=t["mirror_s"], join_program_ms=t["program_ms"],
+                   join_attempts=t["attempts"], slab_cap=stream._slab_cap,
+                   **{k: r.stats.get(k, 0) for k in STREAM_DEVICE_KEYS})
+        check(r.stats["driver_pair_rows"] == 0, f"{tag} update {u}: pair rows crossed from the host")
+        log(f"{tag} update {u}: delta_join split: host mirror {t['mirror_s']:.3f} s, join program "
+            f"{t['program_ms']:.3f} ms ({t['attempts']} runs); slab {stream._slab_cap} slots a shard, "
+            f"resident_bytes {r.stats['resident_bytes']}, score_pair_cap {r.stats['score_pair_cap']}, "
+            f"join_pair_cap {r.stats['join_pair_cap']}, score_traces {r.stats['score_traces']}, "
+            f"join_traces {r.stats['join_traces']}")
+        return row
+
+    res, counts, updates, feed_s, peak = _sharded_feed(torch, dev, stream, batch, n_batches, tag,
+                                                       device, extra)
+    expect_launched(counts, ["fused_gather_score"])
+    check(stream._index.num_keys_inserted == 0, f"{tag}: the host BucketIndex was used")
+    stack_ms, stack_bytes = _stack_ms(torch, stream)
+    mirror = sum(u["mirror_s"] for u in updates)
+    program = sum(u["join_program_ms"] for u in updates) / 1e3
+    secs = time.perf_counter() - t0
+    log(f"{tag}: delta_join split over the updates: host mirror {mirror:.3f} s, join program "
+        f"{program:.3f} s (one shard: {sum(u['mirror_s'] for u in device['updates']):.3f} s, "
+        f"{sum(u['join_program_ms'] for u in device['updates']) / 1e3:.3f} s); the merged slabs' "
+        f"output stack {stack_ms:.3f} ms for {stack_bytes} bytes (slab {stream._slab_cap} slots a "
+        f"shard)")
+    log(f"stream device sharded: phase in {secs:.1f} s")
+    return stream, dict(counts=counts, updates=updates, feed_s=feed_s, phase_s=secs, peak_gib=peak,
+                        mirror_s=mirror, join_program_s=program, stack_ms=stack_ms,
+                        stack_bytes=stack_bytes)
+
 
 # ---------------------------------------------------------------------------
 # the one-shot sharded pipeline: ExecutionPlan(n_shards=n, devices=(card,) * n)
@@ -3166,17 +3396,39 @@ def main() -> int:
     del stream
     device_small_launches, _ = phase_stream_device_small(torch, dev)
     dstream, device_figures = phase_stream_device(torch, dev, world, forest, stream_figures)
-    serve_device_launches, serve_device_figures, _ = phase_serve_device(torch, dev, dstream,
-                                                                        serve_cases)
-    del dstream, world, serve_cases
+    serve_device_launches, serve_device_figures, _ = phase_serve_world(torch, dev, dstream,
+                                                                       serve_cases, "serve device")
+    del dstream
+    torch.cuda.empty_cache()
+    # the sharded streams and serving, held against the one-shard finals
+    t0 = time.perf_counter()
+    stream_sharded_paths = {"stream sharded small": phase_stream_sharded_small(torch, dev)[0]}
+    sstream, sharded_stream_figures = phase_stream_sharded(torch, dev, world, forest, stream_figures)
+    stream_sharded_paths["stream sharded"] = sharded_stream_figures["counts"]
+    stream_sharded_paths["serve sharded"], serve_sharded_figures, _ = phase_serve_world(
+        torch, dev, sstream, serve_cases, "serve sharded")
+    del sstream
+    dsstream, device_sharded_figures = phase_stream_device_sharded(torch, dev, world, forest,
+                                                                   device_figures)
+    stream_sharded_paths["stream device sharded"] = device_sharded_figures["counts"]
+    stream_sharded_paths["serve device sharded"], serve_device_sharded_figures, _ = \
+        phase_serve_world(torch, dev, dsstream, serve_cases, "serve device sharded")
+    stream_sharded_s = time.perf_counter() - t0
+    log(f"sharded streaming and serving: phases in {stream_sharded_s:.1f} s")
+    del dsstream, world, serve_cases
     for key in ("final", "one_shot"):
         stream_figures.pop(key)
+    device_figures.pop("final")
     torch.cuda.empty_cache()
     new_paths = {"stream small": small_launches, "stream": stream_figures["counts"],
                  "stream kernel/jit": stream_figures["kernel_counts"]["kernel"],
                  "stream fused/unionfind": stream_figures["kernel_counts"]["fused"],
                  "serve": serve_launches, "stream device small": device_small_launches,
-                 "stream device": device_figures["counts"], "serve device": serve_device_launches}
+                 "stream device": device_figures["counts"], "serve device": serve_device_launches,
+                 **stream_sharded_paths}
+    for name in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
+        check(sum(c.get(name, 0) for c in stream_sharded_paths.values()) > 0,
+              f"kernel {name} was launched on no sharded streaming or serving path")
     for e in entries:
         if e["name"] in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
             e["launches_streaming_serving"] = {path: c.get(e["name"], 0) for path, c in new_paths.items()}
@@ -3190,6 +3442,15 @@ def main() -> int:
     log(json.dumps({"stream_updates": stream_figures["updates"], "serve": serve_figures,
                     "stream_device_updates": device_figures["updates"],
                     "serve_device": serve_device_figures}))
+    log(json.dumps({"stream_sharded_updates": sharded_stream_figures["updates"],
+                    "stream_sharded_peak_gib": sharded_stream_figures["peak_gib"],
+                    "stream_device_sharded_updates": device_sharded_figures["updates"],
+                    "stream_device_sharded": {k: device_sharded_figures[k] for k in (
+                        "peak_gib", "mirror_s", "join_program_s", "stack_ms", "stack_bytes",
+                        "feed_s")},
+                    "serve_sharded": serve_sharded_figures,
+                    "serve_device_sharded": serve_device_sharded_figures,
+                    "stream_sharded_phases_s": stream_sharded_s}))
     phase_lm_kernels(torch, dev)
     phase_lm_small(torch, dev)
     zamba = phase_lm_full(torch, dev, "zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54})

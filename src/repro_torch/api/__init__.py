@@ -27,7 +27,8 @@ from repro_torch.api.sharded import (
     DistributedPlan, StreamJoinPlan, StreamShardPlan, gather_similar_pairs,
     make_distributed_anotherme, make_sharded_pipeline,
     make_streaming_join_pipeline, make_streaming_score_pipeline,
-    pad_to_shards, plan_capacities, plan_stream_join, sticky_join_plan,
+    pad_to_shards, plan_capacities, plan_stream_capacities, plan_stream_join,
+    sticky_join_plan,
 )
 from repro_torch.api.stages import (
     LCS_IMPLS, CandidateStage, CommunitiesStage, EncodeStage, PipelineContext,

@@ -86,8 +86,7 @@ class ExecutionPlan:
     ``devices=("cuda:0",) * 4`` runs four shards on one card), padding the
     batch to a multiple of n_shards with empty trajectories.
     ``autotune=True`` raises :class:`NotPortedError` in the engine.
-    ``delta_join`` is read by the streaming engine only, which runs one
-    shard only.
+    ``delta_join`` is read by the streaming engine only.
     """
 
     n_shards: int = 1
@@ -227,10 +226,13 @@ class AnotherMeEngine:
 
     def mesh(self) -> compat.ShardMesh:
         """The plan's flat mesh: ``plan.devices``, or the first n_shards
-        CUDA devices (fewer cards than shards raise)."""
+        CUDA devices (fewer cards than shards raise); one shard without
+        ``plan.devices`` is the engine's device."""
         if self._mesh is None:
             n = self.plan.n_shards
             devices = self.plan.devices
+            if devices is None and n == 1:
+                devices = (self.device,)
             if devices is not None and len(devices) < n:
                 raise ValueError(
                     f"ExecutionPlan(n_shards={n}) needs {n} devices, have {len(devices)}"

@@ -9,14 +9,16 @@
     res = serve.query(query_batch)       # QueryResult
     res.match_ids[q], res.mss[q]         # top-k world rows per query
 
-Port of ``repro/api/serving.py`` over a single-device
-:class:`~repro_torch.api.streaming.StreamingEngine`, on either of its joins:
+Port of ``repro/api/serving.py`` over a
+:class:`~repro_torch.api.streaming.StreamingEngine`'s world, on either of its
+joins and at any shard count:
 
 * queries are NOT ingested: the index is probed read-only and the world is
   untouched, so queries commute with ``StreamingEngine.update`` calls.  On
   the host join the probe is ``BucketIndex.probe``; on the device join
-  (``delta_join="device"``) it is :func:`make_query_probe_pipeline` —
-  :func:`~repro_torch.core.device_index.probe_rows` against the resident
+  (``delta_join="device"``) it is :func:`make_query_probe_pipeline` — the
+  query keys routed to their owner shard, where
+  :func:`~repro_torch.core.device_index.probe_rows` probes the resident
   slab, then a dedup of the (row, query) candidates — and the candidate list
   is born on the device and stays there (``_SlabProber``);
 * a query micro-batch runs one score function at pow2-sticky capacities
@@ -26,22 +28,23 @@ Port of ``repro/api/serving.py`` over a single-device
 * candidates score off the resident world through the engine's ``lcs_impl``
   dispatch: under ``"fused"`` the fused kernel #1 takes the query codes as
   table A and the world as table B (two tables, so its identity shortcut
-  never fires), under ``"kernel"`` the batched LCS kernel #2; the device
-  join's world is its places slab, encoded in the score function; then a
+  never fires), under ``"kernel"`` the batched LCS kernel #2; then a
   segmented per-query top-k — sort by (query, -mss, row), rank within each
   query's run, scatter to ``[Q, k]`` — leaves only ``[Q, k]`` ids and
-  scores to read;
+  scores to read.  A mesh world (the device join, or n > 1 shards) is the
+  round-robin places slab: each shard encodes its block, the encodings are
+  all_gathered, each shard scores its candidates and takes its top-k, and
+  the ``[S, Q, k]`` tables are merged with the carried state (a
+  cross-owner duplicate collapses there: its scores are bit-identical);
 * matches require ``mss > rho`` (per query), are ordered by (mss
   descending, row id ascending), and empty slots hold ``(PAD_ID, -1.0)``;
 * with ``serve_prune=True`` the REPOSE-style rounds skip every (query,
   shard) cell whose free MSS bound ``betas_sum * min(len_q, max_len)``
   cannot beat the query's ``rho`` or its running kth-best; results are
-  identical either way.  One device holds one world shard.
+  identical either way.  The rounds run one world shard each.
 
 Every result equals the JAX ``QueryEngine``'s (ids equal, float32 ``mss``
-bit-equal).  The programs' collectives (the key route's ``all_to_all``, the
-``all_gather`` of the world and of the per-shard top-k) are identities at
-one shard; more shards raise :class:`NotPortedError`.
+bit-equal), and at n shards the one-shard engine's.
 """
 from __future__ import annotations
 
@@ -52,13 +55,13 @@ import torch
 
 from repro_torch.api.errors import CapacityExceeded
 from repro_torch.api.sharded import (
-    _one_shard, _positive_hash, _positive_hash_np, _pow2, _scatter,
+    _check_mesh, _positive_hash, _positive_hash_np, _pow2, _route, shard_chunks,
 )
 from repro_torch.core.device import to_numpy
 from repro_torch.core.device_index import _sort2, flat_row_keys, probe_rows
 from repro_torch.core.encoding import encode_codes
 from repro_torch.core.similarity import (
-    PRUNE_EPS, mss_scores, mss_upper_bound, multi_level_lcs,
+    PRUNE_EPS, mss_scores, mss_upper_bound, multi_level_lcs, wavefront_dtype_from_env,
 )
 from repro_torch.core.types import PAD_ID, PAD_KEY, PAD_PLACE
 
@@ -234,11 +237,12 @@ def _merge_topk(rows2d, negs2d, *, k_cap):
 
 def _serve_score_block(
     codes_all, w_len, cand_row, cand_qid, q_places, rho_vec, active,
-    tables, *, plan, betas, fused_mode, impl,
+    tables, *, plan, betas, fused_mode, impl, phys_of,
 ):
     """Encode the queries, gate candidates by the round's (query, shard)
     prune mask, score them off the resident table, and reduce to the
-    [q_cap, k_cap] top-k.  ``cand_row`` holds local world slots."""
+    [q_cap, k_cap] top-k.  ``cand_row`` holds local world ids, at
+    ``phys_of(id)`` in the table."""
     if codes_all.shape[-1] < plan.L_pad:
         # -1 stays a non-matching sentinel column
         codes_all = torch.nn.functional.pad(
@@ -251,7 +255,7 @@ def _serve_score_block(
     shard = torch.where(valid, cand_row % plan.n_shards, 0)
     row = torch.where(valid & active[qsafe.long(), shard.long()], cand_row, PAD_ID)
     alive = row != PAD_ID
-    ri = torch.where(alive, row, 0)
+    ri = phys_of(torch.where(alive, row, 0))
     if fused_mode is not None:
         from repro_torch.kernels.lcs.fused import fused_score
 
@@ -272,16 +276,18 @@ def _serve_score_block(
 # the score function and the probe programs
 # ---------------------------------------------------------------------------
 def make_query_score_pipeline(
+    mesh,
     plan: QueryPlan,
     *,
     betas,
-    places_world: bool = False,
+    axis_name: str = "ex",
     lcs_impl: str = "wavefront",
     trace_counter: list | None = None,
 ):
-    """The query score + top-k function over one device's world.
+    """The query score + top-k function.
 
-    ``places_world=False`` (the host join's world)::
+    ``mesh=None`` is the one-device form over the host join's world, the
+    resident code table::
 
       fn(codes [cap, H, Lw], w_len [cap], cand_row [cand_cap] (local world
          slots), cand_qid [cand_cap], q_places [q_cap, L_pad],
@@ -289,85 +295,134 @@ def make_query_score_pipeline(
          prev_row/prev_neg [q_cap, k_cap] (the carried top-k state), tables)
         -> dict: top_row / top_neg [q_cap, k_cap] (merged with prev)
 
-    ``places_world=True`` (the device join's world, the JAX package's mesh
-    form at one shard) takes the places slab ``places [cap_local, Lw]`` in
-    place of ``codes`` and ``w_len``: it is encoded here, its lengths come
-    from the sentinels, and the per-shard top-k is merged with ``prev``.
+    With a mesh the world is the round-robin places slab, and ``places
+    [S * cap_local, Lw]`` takes the place of ``codes`` and ``w_len``;
+    ``cand_row``/``cand_qid`` are ``[S * cand_cap]`` (each shard its slice)
+    and ``active`` is ``[q_cap, S]``.  Each shard encodes its block of the
+    slab, the encodings are all_gathered, each shard scores its candidates
+    (at ``(g % S) * cap_local + g // S``) and takes its top-k, and the
+    ``[S, q_cap, k_cap]`` tables, laid out query by query (the JAX
+    program's ``moveaxis(0, 1)``), are merged with ``prev``.  The JAX
+    program merges on every shard and reads shard 0's; the merge runs once
+    here, on the first shard's device.
 
     ``trace_counter`` counts the functions built (one per plan), where the
     JAX package counts the traces of its compiled program.
     """
     from repro_torch.api.stages import FUSED_MODES, lcs_impl_fn
+    from repro_torch.core import compat
 
-    _one_shard(plan.n_shards, "make_query_score_pipeline")
     fused_mode = FUSED_MODES.get(lcs_impl)
     impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl)
+    if mesh is not None:
+        _check_mesh(mesh, plan.n_shards, axis_name)
     if trace_counter is not None:
         trace_counter[0] += 1
 
-    def run_single(codes, w_len, cand_row, cand_qid, q_places, rho_vec,
-                   active, prev_row, prev_neg, tables):
-        t_row, t_neg = _serve_score_block(
-            codes, w_len, cand_row, cand_qid, q_places, rho_vec, active,
-            tables, plan=plan, betas=betas, fused_mode=fused_mode, impl=impl,
-        )
-        m_row, m_neg = _merge_topk(
-            torch.cat([t_row, prev_row], dim=1),
-            torch.cat([t_neg, prev_neg], dim=1), k_cap=plan.k_cap,
-        )
-        return {"top_row": m_row, "top_neg": m_neg}
+    def merge(t_rows, t_negs, prev_row, prev_neg):
+        return _merge_topk(torch.cat([t_rows, prev_row], dim=1),
+                           torch.cat([t_negs, prev_neg], dim=1), k_cap=plan.k_cap)
 
-    if not places_world:
+    if mesh is None:
+        def run_single(codes, w_len, cand_row, cand_qid, q_places, rho_vec,
+                       active, prev_row, prev_neg, tables):
+            t_row, t_neg = _serve_score_block(
+                codes, w_len, cand_row, cand_qid, q_places, rho_vec, active, tables,
+                plan=plan, betas=betas, fused_mode=fused_mode, impl=impl, phys_of=lambda g: g,
+            )
+            m_row, m_neg = merge(t_row, t_neg, prev_row, prev_neg)
+            return {"top_row": m_row, "top_neg": m_neg}
+
         return run_single
 
-    def run_places(places, cand_row, cand_qid, q_places, rho_vec, active,
-                   prev_row, prev_neg, tables):
-        # encode the slab here (the all_gather of the encodings: identity);
-        # at one shard the round-robin slot of row g is g
-        codes = encode_codes(places, tables)
-        w_len = (codes[:, 0, :] >= 0).sum(dim=-1).to(torch.int32)
-        return run_single(codes, w_len, cand_row, cand_qid, q_places, rho_vec,
-                          active, prev_row, prev_neg, tables)
+    n_shards = plan.n_shards
+    betas_on = mesh.replicate(betas)
 
-    return run_places
+    def phys_of(g):  # the round-robin world layout
+        return (g % n_shards) * plan.cap_local + g // n_shards
+
+    def program(places, cand_row, cand_qid, q_places, rho_vec, active, prev_row, prev_neg,
+                tables):
+        codes_all = mesh.all_gather([encode_codes(p, t) for p, t in zip(places, tables)])
+        tops = [_serve_score_block(
+            codes_all[i], (codes_all[i][:, 0, :] >= 0).sum(dim=-1).to(torch.int32),
+            cand_row[i], cand_qid[i], q_places[i], rho_vec[i], active[i], tables[i],
+            plan=plan, betas=betas_on[i], fused_mode=fused_mode, impl=impl, phys_of=phys_of,
+        ) for i in range(n_shards)]
+        # [S, q_cap, k_cap] -> [q_cap, S * k_cap]: each query's row holds
+        # shard 0's top-k, then shard 1's, ...
+        g_row, g_neg = (mesh.stack([t[k] for t in tops]).transpose(0, 1).reshape(plan.q_cap, -1)
+                        for k in range(2))
+        m_row, m_neg = merge(g_row, g_neg, prev_row[0], prev_neg[0])
+        return [m_row], [m_neg]
+
+    P = compat.P
+    fn = compat.shard_map(
+        program, mesh=mesh,
+        in_specs=(P(axis_name, None), P(axis_name), P(axis_name), P(None, None), P(None),
+                  P(None, None), P(None, None), P(None, None), P(None, None)),
+        out_specs=(P(None, None), P(None, None)),
+    )
+
+    def run(places, cand_row, cand_qid, q_places, rho_vec, active, prev_row, prev_neg,
+            tables):
+        m_row, m_neg = fn(places, cand_row, cand_qid, q_places, rho_vec, active, prev_row,
+                          prev_neg, tables)
+        return {"top_row": m_row, "top_neg": m_neg}
+
+    return run
 
 
-def make_query_probe_pipeline(plan: QueryPlan, *, trace_counter: list | None = None):
-    """The read-only candidate probe of the device join's slab::
+def make_query_probe_pipeline(mesh, plan: QueryPlan, *, axis_name: str = "ex",
+                              trace_counter: list | None = None):
+    """The read-only candidate probe of the device join's slabs::
 
-      fn(slab_keys [slab_cap], slab_rows, keys [key_in_cap], qids)
-        -> dict: cand_row / cand_qid [1, cand_cap], count [1],
-                 examined [1], overflow [1]
+      fn(slab_keys [S * slab_cap], slab_rows, keys [S * key_in_cap], qids)
+        -> dict: cand_row / cand_qid [S, cand_cap], count [S],
+                 examined [S], overflow [S]
 
-    The join function's route and probe stages with everything mutable
-    removed: query key occurrences route to their owner shard (identity at
-    one shard), :func:`probe_rows` range-probes the slab, and the (world
-    row, query) candidates are deduped (a sort by (row, query): copies
-    found through several shared keys sort adjacent).
+    The join program's route and probe stages with everything mutable
+    removed: query key occurrences route to their owner shard
+    (``all_to_all``), :func:`probe_rows` range-probes its slab, and the
+    (world row, query) candidates are deduped there (a sort by (row,
+    query): copies found through several of the owner's keys sort
+    adjacent; cross-owner copies collapse in the top-k merge).
     """
-    _one_shard(plan.n_shards, "make_query_probe_pipeline")
+    from repro_torch.core import compat
+
+    n_shards = plan.n_shards
+    _check_mesh(mesh, n_shards, axis_name)
     if trace_counter is not None:
         trace_counter[0] += 1
-    n_shards = plan.n_shards
 
-    def run(slab_keys, slab_rows, keys, qids):
-        # at one shard the all_to_all of the key route is the identity
-        (rk, rq), o1 = _scatter(
-            (keys, qids), _positive_hash(keys) % n_shards, keys != PAD_KEY,
-            n_shards=n_shards, capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
-        )
-        row, qid, examined, o2 = probe_rows(slab_keys, slab_rows, rk, rq,
-                                            cap=plan.cand_cap)
+    def dedup(row, qid):
         row_s, qid_s = _sort2(row, qid)
         dup = torch.zeros_like(row_s, dtype=torch.bool)
         dup[1:] = (row_s[1:] == row_s[:-1]) & (qid_s[1:] == qid_s[:-1]) & (row_s[1:] != PAD_ID)
-        row_d = row_s.masked_fill(dup, PAD_ID)
-        qid_d = qid_s.masked_fill(dup, PAD_ID)
-        count = (row_d != PAD_ID).sum().to(torch.int32)
+        return row_s.masked_fill(dup, PAD_ID), qid_s.masked_fill(dup, PAD_ID)
+
+    def program(slab_k, slab_r, keys, qids):
+        recv, o1 = _route(
+            mesh, list(zip(keys, qids)), [_positive_hash(k) % n_shards for k in keys],
+            [k != PAD_KEY for k in keys], capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
+        )
+        probed = [probe_rows(slab_k[i], slab_r[i], rk, rq, cap=plan.cand_cap)
+                  for i, (rk, rq) in enumerate(recv)]
+        deduped = [dedup(row, qid) for row, qid, _, _ in probed]
+        return ([r for r, _ in deduped], [q for _, q in deduped],
+                [(r != PAD_ID).sum().to(torch.int32).reshape(1) for r, _ in deduped],
+                [p[2].reshape(1) for p in probed],
+                [(o1[i] + p[3]).to(torch.int32).reshape(1) for i, p in enumerate(probed)])
+
+    P = compat.P
+    fn = compat.shard_map(program, mesh=mesh, in_specs=(P(axis_name),) * 4,
+                          out_specs=(P(axis_name),) * 5)
+
+    def run(slab_keys, slab_rows, keys, qids):
+        row, qid, count, examined, overflow = fn(slab_keys, slab_rows, keys, qids)
         return {
-            "cand_row": row_d.reshape(n_shards, -1), "cand_qid": qid_d.reshape(n_shards, -1),
-            "count": count.reshape(n_shards), "examined": examined.reshape(n_shards),
-            "overflow": (o1 + o2).to(torch.int32).reshape(n_shards),
+            "cand_row": row, "cand_qid": qid, "count": count.reshape(n_shards),
+            "examined": examined.reshape(n_shards), "overflow": overflow.reshape(n_shards),
         }
 
     return run
@@ -397,13 +452,7 @@ class _HostProber:
         # (slot = id - base); query() adds the base back to the results
         rows = rows - np.int32(e.stream._base)
         total = int(qidx.shape[0])
-        buf_r = np.full((S, cap), PAD_ID, np.int32)
-        buf_q = np.full((S, cap), PAD_ID, np.int32)
-        chunk = -(-total // S) if total else 0
-        for s in range(S):
-            seg = slice(s * chunk, (s + 1) * chunk)
-            buf_r[s, : rows[seg].shape[0]] = rows[seg]
-            buf_q[s, : qidx[seg].shape[0]] = qidx[seg]
+        buf_r, buf_q = shard_chunks((rows, qidx), S, cap, (PAD_ID, PAD_ID))
         e._xfer_bytes += buf_r.nbytes + buf_q.nbytes
         stats = {"candidates": total, "probe_examined": pre["examined"]}
         dev = e.stream.device
@@ -412,9 +461,10 @@ class _HostProber:
 
 
 class _SlabProber:
-    """Candidate probe against the device join's resident slab: only the
-    query key occurrences cross from the host; the candidate list is born on
-    the device and rests in the buffers the score function reads."""
+    """Candidate probe against the device join's resident slabs: only the
+    query key occurrences cross from the host (in contiguous per-shard
+    chunks); the candidate list is born on the device and rests in the
+    buffers the score program reads."""
 
     def __init__(self, engine: "QueryEngine"):
         self.engine = engine
@@ -429,17 +479,15 @@ class _SlabProber:
         e = self.engine
         stream = e.stream
         k_flat, q_flat = pre["k_flat"], pre["q_flat"]
+        S = qplan.n_shards
         out = None
         for _ in range(e.planner.max_retries + 1):
-            in_k = np.full((qplan.key_in_cap,), PAD_KEY, np.int32)
-            in_q = np.full((qplan.key_in_cap,), PAD_ID, np.int32)
-            in_k[: k_flat.shape[0]] = k_flat
-            in_q[: q_flat.shape[0]] = q_flat
+            in_k, in_q = shard_chunks((k_flat, q_flat), S, qplan.key_in_cap, (PAD_KEY, PAD_ID))
             e._xfer_bytes += in_k.nbytes + in_q.nbytes
             out = e._probe_runner(qplan)(
                 stream._slab_keys, stream._slab_rows,
-                torch.tensor(in_k, device=stream.device),
-                torch.tensor(in_q, device=stream.device),
+                torch.tensor(in_k.reshape(-1), device=stream.device),
+                torch.tensor(in_q.reshape(-1), device=stream.device),
             )
             if int(out["overflow"].sum()) == 0:
                 break
@@ -567,7 +615,7 @@ class QueryEngine:
         if k_flat.size == 0:
             return empty()
         pre = self._prober.prepare(keys_np, k_flat, q_flat)
-        S = 1  # one device holds one world shard
+        S = self._world_shards()
         qplan = sticky_query_plan(
             self.planner.plan_query(
                 Q, k_max, n_shards=S, cap_local=self.stream._cap // S,
@@ -593,6 +641,10 @@ class QueryEngine:
         return self._finish_result(ids.astype(np.int32), mss, k_vec, k_max, stats)
 
     # -- internals -----------------------------------------------------------
+
+    def _world_shards(self) -> int:
+        """Round-robin world shards: the plan's on a mesh world, else one."""
+        return self.plan.n_shards if self.stream._mesh_world else 1
 
     def _finish_result(self, ids, mss, k_vec, k_max, stats):
         if k_max:
@@ -687,11 +739,12 @@ class QueryEngine:
         return (stream._codes_dev, stream._len_dev)
 
     def _score_runner(self, qplan: QueryPlan):
-        key = (qplan, self.config.lcs_impl, self.stream._H)
+        key = (qplan, self.config.lcs_impl, wavefront_dtype_from_env(), self.stream._H)
         runner = self._runner_cache.get(key)
         if runner is None:
+            mesh = self.stream._eng.mesh() if self.stream._mesh_world else None
             runner = make_query_score_pipeline(
-                qplan, betas=self.betas, places_world=self.stream._mesh_world,
+                mesh, qplan, betas=self.betas, axis_name=self.plan.axis_name,
                 lcs_impl=self.config.lcs_impl, trace_counter=self.serve_traces,
             )
             self._runner_cache[key] = runner
@@ -701,7 +754,9 @@ class QueryEngine:
     def _probe_runner(self, qplan: QueryPlan):
         runner = self._probe_cache.get(qplan)
         if runner is None:
-            runner = make_query_probe_pipeline(qplan, trace_counter=self.probe_traces)
+            runner = make_query_probe_pipeline(self.stream._eng.mesh(), qplan,
+                                               axis_name=self.plan.axis_name,
+                                               trace_counter=self.probe_traces)
             self._probe_cache[qplan] = runner
             self.runner_builds += 1
         return runner

@@ -17,31 +17,30 @@ torch device per shard, driven by one process:
                                 single-device path (the fused scorers #1/#3,
                                 the batched LCS kernel #2, or plain code)
 
-The one-shot program (:func:`make_sharded_pipeline`) runs as bulk-synchronous
-phases: a loop over the shards between collectives.  Capacities are planned
-on the host from exact cardinalities (:func:`plan_capacities`, numpy, with
-the device's own int32 hashes), and every stage counts its overflow, so a
-capacity bust is detected, never silent.
+Every program runs as bulk-synchronous phases: a loop over the shards between
+collectives.  Capacities are planned on the host from exact cardinalities
+(numpy, with the device's own int32 hashes), and every stage counts its
+overflow, so a capacity bust is detected, never silent.
 
-The streaming pieces run at one shard (the streaming engine and serving
-refuse ``n_shards != 1`` at their own entry points, :func:`_one_shard`):
-
+  * :func:`make_sharded_pipeline` (planned by :func:`plan_capacities`): the
+    one-shot encode, join and score;
   * :class:`StreamJoinPlan`, :func:`plan_stream_join` and
     :func:`sticky_join_plan`: the exact per-owner capacity plan of one
-    update's join, from the ``StreamJoinStats`` count mirror;
-  * :func:`make_streaming_join_pipeline`: route the new rows' keys, probe
-    the slab for the delta pairs, route and dedup them, merge the keys in;
-  * :class:`StreamShardPlan` and :func:`make_streaming_score_pipeline`:
-    encode the places slab, prune and score the resting delta pairs
-    (``score_mode="replicate"``).
+    streaming update's join, from the ``StreamJoinStats`` count mirror;
+  * :func:`make_streaming_join_pipeline`: route the new rows' keys to their
+    owner's slab, probe it for the delta pairs, route and dedup them by pair
+    hash, merge the keys in;
+  * :class:`StreamShardPlan`, :func:`plan_stream_capacities` and
+    :func:`make_streaming_score_pipeline`: encode each shard's block of the
+    places slab, prune and score the delta pairs, in place against the
+    gathered world (``"replicate"``) or at rest after the owner hops
+    (``"shuffle"``).
 
-At one shard every collective is the identity, so those programs call the
-bucket scatter (:func:`_scatter`) directly.  The streaming world keeps the
-JAX package's round-robin layout (row g at ``(g % n) * cap_local + g // n``),
-which at one shard is row g at slot g.  Each streaming builder returns a
-plain function and counts its builds in ``trace_counter``, where the JAX
-package counts the traces of its compiled program: one per distinct plan in
-both.
+The streaming world is laid out round-robin, as the JAX package's: row g on
+shard ``g % n`` at local slot ``g // n``, physical row
+``(g % n) * cap_local + g // n``.  Each streaming builder returns a plain
+function and counts its builds in ``trace_counter``, where the JAX package
+counts the traces of its compiled program: one per distinct plan in both.
 """
 from __future__ import annotations
 
@@ -107,13 +106,6 @@ def _pow2(x: int, floor_pow2: int = 4) -> int:
     return 1 << max(floor_pow2, int(np.ceil(np.log2(max(int(x), 1)))))
 
 
-def _one_shard(n_shards: int, what: str) -> None:
-    """The streaming programs run at one shard, where every collective is
-    the identity; more shards are not ported for them yet."""
-    if n_shards != 1:
-        raise NotPortedError(f"{what} with n_shards={n_shards}")
-
-
 def _scatter(values: tuple, dest: torch.Tensor, valid: torch.Tensor, *, n_shards: int,
              capacity: int, pads: tuple):
     """One shard's half of a route: scatter rows into ``[n_shards, capacity]``
@@ -160,6 +152,30 @@ def _route(mesh, values: list, dest: list, valid: list, *, capacity: int, pads: 
     return [tuple(r[i] for r in recv) for i in range(n)], [o for _, o in sent]
 
 
+def _check_mesh(mesh, n_shards: int, axis_name: str) -> None:
+    """A program planned for ``n_shards`` shards on ``axis_name`` runs on a
+    mesh of that size and axis only."""
+    if mesh.size != n_shards or mesh.axis_name != axis_name:
+        raise ValueError(f"plan of {n_shards} shards on axis {axis_name!r} given {mesh}")
+
+
+def shard_chunks(arrays, n_shards: int, cap: int, pads):
+    """Host arrays of one length cut into ``n_shards`` contiguous chunks of
+    ``ceil(len / n_shards)``, each at the front of its shard's row of a
+    ``[n_shards, cap]`` int32 buffer filled with its pad: the per-shard
+    inputs of the streaming and serving programs.  One buffer per array."""
+    total = int(arrays[0].shape[0])
+    chunk = -(-total // n_shards) if total else 0
+    outs = []
+    for a, pad in zip(arrays, pads):
+        buf = np.full((n_shards, cap), pad, np.int32)
+        for s in range(n_shards):
+            seg = a[s * chunk:(s + 1) * chunk]
+            buf[s, :seg.shape[0]] = seg
+        outs.append(buf)
+    return outs
+
+
 def _betas_sum(betas: torch.Tensor) -> torch.Tensor:
     """float32 sum of the betas in index order (XLA's order for the few
     levels of a forest), as the reference's ``jnp.sum(betas)``."""
@@ -198,7 +214,8 @@ def _hop_gather_codes(mesh, left, right, codes_local, *, owner_of, slot_of, hop_
     on to owner(right), attach, and come to rest there (the pairs are
     already globally deduped).  Ownership is pluggable: the one-shot
     pipeline owns rows in blocks, ``owner_of(g) = g // local_n`` and
-    ``slot_of(g, i) = g - i * local_n`` on shard i.  Received rows sit
+    ``slot_of(g, i) = g - i * local_n`` on shard i; the streaming world
+    round-robins them, ``g % n`` and ``g // n``.  Received rows sit
     scattered across per-source buckets, so the valid rows are compacted to
     the front (a stable sort) before the fit to ``out_cap``.
 
@@ -528,8 +545,7 @@ def make_sharded_pipeline(
     if score_mode not in SCORE_MODES:
         raise ValueError(f"unknown score_mode {score_mode!r}; valid: {list(SCORE_MODES)}")
     n_shards = plan.n_shards
-    if mesh.size != n_shards or mesh.axis_name != axis_name:
-        raise ValueError(f"plan of {n_shards} shards on axis {axis_name!r} given {mesh}")
+    _check_mesh(mesh, n_shards, axis_name)
     if subtraj is not None:
         W, stride, nw = subtraj
     else:
@@ -890,56 +906,81 @@ def sticky_join_plan(plan: StreamJoinPlan, prev: StreamJoinPlan | None) -> Strea
     })
 
 
-def make_streaming_join_pipeline(plan: StreamJoinPlan, *, trace_counter: list | None = None):
-    """Build the streaming delta-join function (the device-side replacement
-    for ``BucketIndex.insert``)::
+def make_streaming_join_pipeline(mesh, plan: StreamJoinPlan, *, axis_name: str = "ex",
+                                 trace_counter: list | None = None):
+    """Build the streaming delta-join program over ``mesh`` (the device-side
+    replacement for ``BucketIndex.insert``)::
 
-      fn(slab_keys [slab_cap] int32,   # the resident sorted slab
-         slab_rows [slab_cap] int32,
-         keys      [key_in_cap] int32,  # the new occurrences, PAD-padded
-         rows      [key_in_cap] int32)
+      fn(slab_keys [n_shards * slab_cap] int32,   # the resident sorted slabs
+         slab_rows [n_shards * slab_cap] int32,
+         keys      [n_shards * key_in_cap] int32,  # the new occurrences,
+         rows      [n_shards * key_in_cap] int32)  # PAD-padded chunks
         -> dict: slab_keys/slab_rows (merged: commit only on success),
-                 left/right [1, pair_cap] deduped delta pairs, count [1],
-                 max_count [1] (the post-dedup count, the JAX program's
-                 pmax), examined [1], overflow [1, 4]
+                 left/right [n_shards, pair_cap] deduped delta pairs,
+                 count [n_shards], max_count [n_shards] (the pmax of the
+                 post-dedup counts, on every shard), examined [n_shards],
+                 overflow [n_shards, 4]
 
-    Stages: (1) route the occurrences to ``hash(key) % n_shards``;
-    (2) :func:`probe_pairs` against the slab; (3) route by pair hash and
-    :func:`dedup_pairs`; (4) :func:`merge_insert` the occurrences into the
-    slab.  The function is pure: it returns new slabs.
+    Stages per shard: (1) ``all_to_all`` the incoming occurrences to
+    ``hash(key) % n_shards`` (:func:`_route`); (2) :func:`probe_pairs`
+    against the shard's slab (new-vs-old and new-vs-new, exact ``examined``
+    counts); (3) route the pairs by pair hash and :func:`dedup_pairs`, so
+    every delta pair rests on exactly one shard (cross-owner duplicates
+    collapse here); (4) :func:`merge_insert` the received occurrences into
+    the slab.  The program is pure: it returns new slabs, stacked from the
+    shards' (one copy of the slab an update).
     """
-    _one_shard(plan.n_shards, "make_streaming_join_pipeline")
+    from repro_torch.core import compat
+
+    n_shards = plan.n_shards
+    _check_mesh(mesh, n_shards, axis_name)
     if trace_counter is not None:
         trace_counter[0] += 1  # one build per plan (the JAX trace count)
-    n_shards = plan.n_shards
+    shards = range(n_shards)
 
-    def run(slab_keys, slab_rows, keys, rows):
-        valid = keys != PAD_KEY
-        # at one shard the all_to_all of a route is the identity
-        (rk, rr), o1 = _scatter(
-            (keys, rows), _positive_hash(keys) % n_shards, valid, n_shards=n_shards,
-            capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
+    def program(slab_k, slab_r, keys, rows):
+        recv, o1 = _route(
+            mesh, list(zip(keys, rows)), [_positive_hash(k) % n_shards for k in keys],
+            [k != PAD_KEY for k in keys], capacity=plan.key_route_cap, pads=(PAD_KEY, PAD_ID),
         )
-        lo, hi, examined, o2 = probe_pairs(slab_keys, slab_rows, rk, rr,
-                                           nn_cap=plan.nn_cap, no_cap=plan.no_cap)
-        (rlo, rhi), o3 = _scatter(
-            (lo, hi), _pair_hash(lo, hi) % n_shards, lo != PAD_ID, n_shards=n_shards,
+        probed = [probe_pairs(slab_k[i], slab_r[i], rk, rr, nn_cap=plan.nn_cap,
+                              no_cap=plan.no_cap) for i, (rk, rr) in zip(shards, recv)]
+        recv2, o3 = _route(
+            mesh, [(lo, hi) for lo, hi, _, _ in probed],
+            [_pair_hash(lo, hi) % n_shards for lo, hi, _, _ in probed],
+            [lo != PAD_ID for lo, _, _, _ in probed],
             capacity=plan.pair_route_cap, pads=(PAD_ID, PAD_ID),
         )
-        cand = dedup_pairs(rlo, rhi)
-        left = _fit(cand.left, plan.pair_cap, PAD_ID)
-        right = _fit(cand.right, plan.pair_cap, PAD_ID)
-        o4 = (cand.count - plan.pair_cap).clamp(min=0)
-        slab_k2, slab_r2, o5 = merge_insert(slab_keys, slab_rows, rk, rr)
-        count = cand.count.clamp(max=plan.pair_cap)
-        zero = torch.zeros((), dtype=torch.int32, device=keys.device)
-        overflow = torch.stack([o1 + o2, o3 + o4, o5, zero]).to(torch.int32)
+        cands = [dedup_pairs(rlo, rhi) for rlo, rhi in recv2]
+        merged = [merge_insert(slab_k[i], slab_r[i], rk, rr) for i, (rk, rr) in zip(shards, recv)]
+        count = [c.count.clamp(max=plan.pair_cap) for c in cands]
+        # the worst per-shard post-dedup count, on every shard: the engine
+        # sizes the score program's pair buffers from it
+        max_count = mesh.pmax(count)
+        overflow = []
+        for i, c in zip(shards, cands):
+            o4 = (c.count - plan.pair_cap).clamp(min=0)
+            zero = torch.zeros((), dtype=torch.int32, device=c.count.device)
+            overflow.append(torch.stack([o1[i] + probed[i][3], o3[i] + o4, merged[i][2],
+                                         zero]).to(torch.int32))
+        return ([m[0] for m in merged], [m[1] for m in merged],
+                [_fit(c.left, plan.pair_cap, PAD_ID) for c in cands],
+                [_fit(c.right, plan.pair_cap, PAD_ID) for c in cands],
+                [x.reshape(1) for x in count], [x.reshape(1) for x in max_count],
+                [p[2].reshape(1) for p in probed], overflow)
+
+    P = compat.P
+    fn = compat.shard_map(program, mesh=mesh, in_specs=(P(axis_name),) * 4,
+                          out_specs=(P(axis_name),) * 8)
+
+    def run(slab_keys, slab_rows, keys, rows):
+        sk, sr, left, right, count, max_count, examined, overflow = fn(
+            slab_keys, slab_rows, keys, rows)
         return {
-            "slab_keys": slab_k2, "slab_rows": slab_r2,
-            "left": left.reshape(n_shards, -1), "right": right.reshape(n_shards, -1),
-            "count": count.reshape(n_shards), "max_count": count.reshape(n_shards),
-            "examined": examined.reshape(n_shards),
-            "overflow": overflow.reshape(n_shards, -1),
+            "slab_keys": sk.reshape(-1), "slab_rows": sr.reshape(-1),
+            "left": left, "right": right,
+            "count": count.reshape(n_shards), "max_count": max_count.reshape(n_shards),
+            "examined": examined.reshape(n_shards), "overflow": overflow,
         }
 
     return run
@@ -953,89 +994,261 @@ class StreamShardPlan:
     """Static shapes of one streaming score program.
 
     The world is laid out round-robin: row g on shard ``g % n_shards`` at
-    local slot ``g // n_shards``.  In ``"replicate"`` mode pairs score in
-    place, so ``out_cap == pair_cap`` (the JAX plan's ``hop_cap`` and
-    ``n_chunks`` size the ``"shuffle"`` owner hops, not ported).
+    local slot ``g // n_shards``, so appends keep every shard within one row
+    of balanced.  All capacities are powers of two, kept sticky by the
+    engine.
     """
 
     n_shards: int
-    cap_local: int   # physical world rows per shard
-    pair_cap: int    # delta pairs per shard
-    out_cap: int     # resting pairs per shard
+    cap_local: int   # physical world rows per shard (world cap / n_shards)
+    pair_cap: int    # delta pairs per shard (host-assigned input slices)
+    hop_cap: int     # rows per (src, dst) bucket in the owner hops (shuffle);
+    #                  PER CHUNK when n_chunks > 1
+    out_cap: int     # resting pairs per shard after the hops (PER CHUNK when
+    #                  n_chunks > 1); "replicate" scores in place: == pair_cap
+    n_chunks: int = 1  # shuffle: split each shard's pair slice into this many
+    #                    sub-chunks, chunk i+1's hops issued before chunk i
+    #                    scores (a power of two dividing pair_cap)
+
+
+def plan_stream_capacities(
+    lo: np.ndarray,
+    hi: np.ndarray,
+    n_shards: int,
+    cap_local: int,
+    *,
+    score_mode: str = "replicate",
+    floor_pow2: int = 4,
+    overlap_chunks: int = 1,
+    pair_cap_floor: int = 0,
+    windows_per_row: int = 1,
+) -> StreamShardPlan:
+    """Exact skew-aware capacity plan for ONE micro-batch's delta pairs
+    (numpy; the JAX package's function, line for line).
+
+    The delta pairs are deduped on the host already, so planning is the
+    score shuffle's: pairs go to source shards in contiguous chunks, and in
+    ``score_mode="shuffle"`` the two owner hops are sized from the actual
+    per-(chunk, src, dst) loads under round-robin ownership ``id %
+    n_shards``.  Capacities are powers of two; the engine keeps them sticky.
+    ``pair_cap_floor`` (the sticky ``pair_cap``) lets a fresh plan compute
+    its chunk loads under the slice layout the runner will use.
+    ``windows_per_row > 1`` declares window ids (``t * nw + j``), owned per
+    trajectory; the streaming engine rejects windows, the planner keeps
+    them for parity.
+    """
+    p = int(lo.shape[0])
+    chunk = -(-p // n_shards) if p else 0  # ceil
+    pair_cap = max(_pow2(chunk, floor_pow2), pair_cap_floor or 0)
+    if score_mode == "replicate":
+        return StreamShardPlan(
+            n_shards=n_shards, cap_local=cap_local, pair_cap=pair_cap,
+            hop_cap=0, out_cap=pair_cap,
+        )
+    n_chunks = max(int(overlap_chunks), 1)
+    sub = pair_cap // n_chunks if n_chunks > 1 else pair_cap
+    if p:
+        lo = np.asarray(lo, np.int64)
+        hi = np.asarray(hi, np.int64)
+        idx = np.arange(p, dtype=np.int64)
+        src = idx // max(chunk, 1)
+        pos = idx - src * max(chunk, 1)    # front slot in the shard's slice
+        cidx = np.minimum(pos // max(sub, 1), n_chunks - 1)
+        own_lo = (lo // windows_per_row) % n_shards
+        own_hi = (hi // windows_per_row) % n_shards
+        h1 = np.zeros((n_chunks, n_shards, n_shards), np.int64)
+        np.add.at(h1, (cidx, src, own_lo), 1)
+        h2 = np.zeros((n_chunks, n_shards, n_shards), np.int64)
+        np.add.at(h2, (cidx, own_lo, own_hi), 1)
+        rest = np.zeros((n_chunks, n_shards), np.int64)
+        np.add.at(rest, (cidx, own_hi), 1)
+        hop_need = int(max(h1.max(), h2.max()))
+        rest_need = int(rest.max())
+    else:
+        hop_need = rest_need = 1
+    return StreamShardPlan(
+        n_shards=n_shards, cap_local=cap_local, pair_cap=pair_cap,
+        hop_cap=_pow2(hop_need, floor_pow2),
+        out_cap=_pow2(rest_need, floor_pow2),
+        n_chunks=n_chunks,
+    )
 
 
 def make_streaming_score_pipeline(
+    mesh,
     plan: StreamShardPlan,
     *,
     betas: torch.Tensor,
+    axis_name: str = "ex",
     score_mode: str = "replicate",
     lcs_impl: str = "wavefront",
     trace_counter: list | None = None,
     score_prune: bool = False,
     prune_tau: float = 0.0,
+    tuning=None,
 ):
-    """Build the streaming delta score function::
+    """Build the streaming delta score program over ``mesh``::
 
-      fn(places [cap_local, L] int32,   # the round-robin places slab
-         left   [pair_cap] int32,       # local ids, PAD_ID pad
-         right  [pair_cap] int32,
+      fn(places [n_shards * cap_local, L] int32,  # the round-robin slab
+         left   [n_shards * pair_cap] int32,      # local ids, PAD_ID pad
+         right  [n_shards * pair_cap] int32,
          tables [n_levels, num_places] int32)
-        -> dict: left/right [1, out_cap], level_lcs [1, out_cap, H],
-                 mss [1, out_cap], overflow [1], pruned [1]
+        -> dict: left/right [n, rest], level_lcs [n, rest, H], mss [n, rest],
+                 overflow [n], pruned [n]   (rest = out_cap * n_chunks)
 
-    The world is encoded inside the function every call, and lengths come
-    from the encoding's sentinels, as the reference does.  ``score_prune``
-    masks the pairs whose float32 MSS bound cannot clear ``prune_tau`` to
-    PAD (their slots still score, as the reference's do, and read mss
-    -1.0).  Under the fused family the fused scorer (#1) runs with the
-    world as both of its tables; otherwise the pairs' rows are gathered for
-    ``multi_level_lcs`` (the batched LCS kernel #2 under ``"kernel"``).
+    Each shard encodes its own block of the slab every call; lengths come
+    from the encodings' sentinels.  ``"replicate"`` all_gathers the
+    encodings and scores each shard's pair slice in place (output slot ==
+    input slot), the fused scorer (#1) with the gathered world as both of
+    its tables; ``"shuffle"`` keeps the table sharded and runs the two owner
+    hops (:func:`_hop_gather_codes`, owner ``g % n``, slot ``g // n``), then
+    scores the resting stacks (#1 on two stacks with iota indices), chunk
+    i+1's hops issued before chunk i scores when ``plan.n_chunks > 1``.
+    Other impls gather the rows for ``multi_level_lcs`` (the batched LCS
+    kernel #2 under ``"kernel"``).
+
+    ``score_prune`` masks the pairs whose float32 MSS bound cannot clear
+    ``prune_tau`` to PAD (in shuffle mode BEFORE the hops, from an
+    all_gather of the lengths only, so pruned pairs never travel); pruned
+    slots read mss -1.0 and their count returns as ``pruned``.
+    ``tuning`` is the JAX package's LCS tuning record; the table is not
+    ported, so it must be None.
     """
     from repro_torch.api.stages import FUSED_MODES, lcs_impl_fn
+    from repro_torch.core import compat
 
-    _one_shard(plan.n_shards, "make_streaming_score_pipeline")
-    if score_mode != "replicate":
-        raise NotPortedError(f"make_streaming_score_pipeline(score_mode={score_mode!r})")
+    if tuning is not None:
+        raise NotPortedError("make_streaming_score_pipeline(tuning=...) (the LCS tuning table)")
+    if score_mode not in SCORE_MODES:
+        raise ValueError(f"unknown score_mode {score_mode!r}; valid: {list(SCORE_MODES)}")
+    n_shards = plan.n_shards
+    _check_mesh(mesh, n_shards, axis_name)
     fused_mode = FUSED_MODES.get(lcs_impl)
     impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl)
+    out_cap = plan.out_cap
+    n_chunks = plan.n_chunks if score_mode == "shuffle" else 1
+    if n_chunks > 1:
+        if plan.pair_cap % n_chunks:
+            raise ValueError(f"pair_cap ({plan.pair_cap}) must divide into n_chunks="
+                             f"{n_chunks} slices (both are powers of two)")
+        sub = plan.pair_cap // n_chunks
+    rest_total = n_chunks * out_cap
     if trace_counter is not None:
         trace_counter[0] += 1  # one build per plan (the JAX trace count)
-    n_shards = plan.n_shards
+    betas_on = mesh.replicate(betas)
+    shards = range(n_shards)
 
-    def _phys(g, valid):
-        # round-robin physical slot: (g % n) * cap_local + g // n
+    def phys(g, valid):
+        # round-robin physical row: (g % n) * cap_local + g // n
         safe = torch.where(valid, g, 0).long()
         return (safe % n_shards) * plan.cap_local + safe // n_shards
 
-    def run(places, left, right, tables):
-        codes_all = encode_codes(places, tables)  # the all_gather: identity
+    def zeros(like):
+        return torch.zeros((), dtype=torch.int32, device=like.device)
+
+    def prune(left, right, len_all, i):
+        """Mask shard i's pairs that cannot clear tau to PAD; returns the
+        masked pairs and the pruned count."""
         valid = left != PAD_ID
-        li, ri = _phys(left, valid), _phys(right, valid)
-        n_pruned = torch.zeros((), dtype=torch.int32, device=left.device)
-        if score_prune:
-            len_all = _lengths_of(codes_all)
-            keep = _prune_keep(len_all[li], len_all[ri], betas, prune_tau, valid)
-            n_pruned = (valid.sum() - keep.sum()).to(torch.int32)
-            left = torch.where(keep, left, PAD_ID)
-            right = torch.where(keep, right, PAD_ID)
+        keep = _prune_keep(len_all[phys(left, valid)], len_all[phys(right, valid)],
+                           betas_on[i], prune_tau, valid)
+        return (torch.where(keep, left, PAD_ID), torch.where(keep, right, PAD_ID),
+                (valid.sum() - keep.sum()).to(torch.int32))
+
+    def score_table(codes_all, li, ri, betas):
+        """Replicate: score a shard's pairs (physical rows ``li``, ``ri``)
+        out of the gathered world."""
         if fused_mode is not None:
             from repro_torch.kernels.lcs.fused import fused_score
 
             len_all = _lengths_of(codes_all)
-            level_lcs, mss = fused_score(codes_all, len_all, codes_all, len_all,
-                                         li.to(torch.int32), ri.to(torch.int32), betas,
-                                         mode=fused_mode)
+            return fused_score(codes_all, len_all, codes_all, len_all, li.to(torch.int32),
+                               ri.to(torch.int32), betas, mode=fused_mode)
+        a, b = codes_all[li], codes_all[ri]
+        lvl = multi_level_lcs(a, _lengths_of(a), b, _lengths_of(b), impl=impl)
+        return lvl, mss_scores(lvl, betas)
+
+    def score_gathered(codes_l, codes_r, betas):
+        """Shuffle: score one resting operand stack (the hops gathered it)."""
+        la, lb = _lengths_of(codes_l), _lengths_of(codes_r)
+        if fused_mode is not None:
+            from repro_torch.kernels.lcs.fused import fused_score
+
+            iota = torch.arange(codes_l.shape[0], dtype=torch.int32, device=codes_l.device)
+            return fused_score(codes_l, la, codes_r, lb, iota, iota, betas, mode=fused_mode)
+        lvl = multi_level_lcs(codes_l, la, codes_r, lb, impl=impl)
+        return lvl, mss_scores(lvl, betas)
+
+    def program(places, left, right, tables):
+        codes = [encode_codes(places[i], tables[i]) for i in shards]  # [cap_local, H, L]
+        n_pruned = [zeros(x) for x in left]
+        left, right = list(left), list(right)
+        if score_mode == "replicate":
+            codes_all = mesh.all_gather(codes)
+            del codes
+            # the rows of every slot, pruned ones too: their slots still
+            # score, as the reference's do, and read mss -1.0
+            rows = [(phys(x, x != PAD_ID), phys(y, x != PAD_ID)) for x, y in zip(left, right)]
+            if score_prune:
+                for i in shards:
+                    left[i], right[i], n_pruned[i] = prune(
+                        left[i], right[i], _lengths_of(codes_all[i]), i)
+            scores = [score_table(codes_all[i], *rows[i], betas_on[i]) for i in shards]
+            ovf = [zeros(x) for x in left]
         else:
-            a, b = codes_all[li], codes_all[ri]
-            level_lcs = multi_level_lcs(a, _lengths_of(a), b, _lengths_of(b), impl=impl)
-            mss = mss_scores(level_lcs, betas)
-        mss = mss.masked_fill(left == PAD_ID, -1.0)
-        zero = torch.zeros((1,), dtype=torch.int32, device=left.device)
+            if score_prune:
+                # prune BEFORE the hops: only the [N] lengths are gathered,
+                # and masked pairs are invalid to the route, so never travel
+                len_all = mesh.all_gather([_lengths_of(c) for c in codes])
+                for i in shards:
+                    left[i], right[i], n_pruned[i] = prune(left[i], right[i], len_all[i], i)
+
+            def hop(l_parts, r_parts):
+                return _hop_gather_codes(
+                    mesh, l_parts, r_parts, codes, owner_of=lambda g: g % n_shards,
+                    slot_of=lambda g, i: g // n_shards, hop_cap=plan.hop_cap, out_cap=out_cap,
+                )
+
+            def score_chunk(p):
+                return [score_gathered(p[2][i], p[3][i], betas_on[i]) for i in shards]
+
+            if n_chunks == 1:
+                p = hop(left, right)
+                parts = [(p, score_chunk(p))]
+            else:
+                # issue chunk c+1's owner hops BEFORE scoring chunk c's
+                # resting pairs (the JAX program's order)
+                parts = []
+                pending = hop([x[:sub] for x in left], [x[:sub] for x in right])
+                for c in range(1, n_chunks):
+                    sl = slice(c * sub, (c + 1) * sub)
+                    nxt = hop([x[sl] for x in left], [x[sl] for x in right])
+                    parts.append((pending, score_chunk(pending)))
+                    pending = nxt
+                parts.append((pending, score_chunk(pending)))
+            left = [torch.cat([p[0][i] for p, _ in parts]) for i in shards]
+            right = [torch.cat([p[1][i] for p, _ in parts]) for i in shards]
+            scores = [tuple(torch.cat([sc[i][k] for _, sc in parts]) for k in range(2))
+                      for i in shards]
+            ovf = [sum(p[4][i] for p, _ in parts) for i in shards]
+        mss = [m.masked_fill(x == PAD_ID, -1.0) for (_, m), x in zip(scores, left)]
+        return (left, right, [lv for lv, _ in scores], mss,
+                [o.to(torch.int32).reshape(1) for o in ovf], [p.reshape(1) for p in n_pruned])
+
+    P = compat.P
+    fn = compat.shard_map(
+        program, mesh=mesh,
+        in_specs=(P(axis_name, None), P(axis_name), P(axis_name), P(None, None)),
+        out_specs=(P(axis_name),) * 6,
+    )
+
+    def run(places, left, right, tables):
+        out_l, out_r, level_lcs, mss, overflow, pruned = fn(places, left, right, tables)
         return {
-            "left": left.reshape(n_shards, -1), "right": right.reshape(n_shards, -1),
-            "level_lcs": level_lcs.reshape(n_shards, plan.out_cap, -1),
-            "mss": mss.reshape(n_shards, -1), "overflow": zero,
-            "pruned": n_pruned.reshape(n_shards),
+            "left": out_l.reshape(n_shards, -1), "right": out_r.reshape(n_shards, -1),
+            "level_lcs": level_lcs.reshape(n_shards, rest_total, -1),
+            "mss": mss.reshape(n_shards, -1), "overflow": overflow.reshape(n_shards),
+            "pruned": pruned.reshape(n_shards),
         }
 
     return run

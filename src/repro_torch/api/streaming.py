@@ -7,33 +7,40 @@
         result = stream.update(micro_batch)   # EngineResult, same type as
                                               # AnotherMeEngine.run
 
-Port of ``repro/api/streaming.py`` on one device.  Per-update cost follows
-the DELTA, not the world:
+Port of ``repro/api/streaming.py``, on one device or on a mesh of shards
+(``ExecutionPlan(n_shards=n, devices=...)``: one process drives the shards,
+``devices=("cuda:0",) * 4`` puts four on one card, ``("cpu",) * 4`` on the
+CPU).  Per-update cost follows the DELTA, not the world:
 
 * the world lives on the engine's device (the card unless ``device="cpu"``)
-  and grows by amortized doubling (:meth:`CapacityPlanner.grow_capacity`);
-  an update writes only its new rows, and a growth of the world width ``L``
-  rebuilds it from the host mirror;
+  and grows by amortized doubling (:meth:`CapacityPlanner.grow_capacity`;
+  on a mesh a multiple of n); an update writes only its new rows, and a
+  growth of the world width ``L`` rebuilds it from the host mirror;
 * with the host delta join (``ExecutionPlan(delta_join="host")``, the
-  default) the world is the ``[cap, H, L]`` code table, a host
-  :class:`~repro_torch.core.stream_index.BucketIndex` inserts the new rows'
-  keys and emits exactly the pairs whose later member arrived in this
-  update, and the pairs are scored through the one-shot engine's
+  default) a host :class:`~repro_torch.core.stream_index.BucketIndex`
+  inserts the new rows' keys and emits exactly the pairs whose later member
+  arrived in this update.  On one shard the world is the ``[cap, H, L]``
+  code table and the pairs are scored through the one-shot engine's
   ``lcs_impl`` dispatch (the fused kernel #1 under ``"fused"``, the batched
-  LCS kernel #2 under ``"kernel"``);
+  LCS kernel #2 under ``"kernel"``); on n shards the world is the
+  round-robin places slab (row g on shard ``g % n``) and the pairs go in
+  contiguous per-shard chunks to
+  :func:`~repro_torch.api.sharded.make_streaming_score_pipeline`, in either
+  ``score_mode`` (``"shuffle"`` with ``overlap_chunks``), at a sticky plan
+  whose owner hops double on an overflow;
 * with ``ExecutionPlan(delta_join="device")`` the bucket state leaves the
-  host: it is a sorted slab on the device (``core/device_index.py``), the
-  world is the ``[cap, L]`` places slab, and each update ships only the new
-  rows' key occurrences into the join function
+  host: it is key-sharded sorted slabs on the device
+  (``core/device_index.py``), the world is the places slab, and each update
+  ships only the new rows' key occurrences into the join program
   (:func:`~repro_torch.api.sharded.make_streaming_join_pipeline`), whose
-  deduped delta pairs feed the score function
-  (:func:`~repro_torch.api.sharded.make_streaming_score_pipeline`) on the
-  device, pruned there under ``score_prune``: the pair list never reaches
-  the host (``driver_pair_rows == 0``).  The host keeps a count mirror
+  deduped delta pairs feed the score program on the device, pruned there
+  under ``score_prune``: the pair list never reaches the host
+  (``driver_pair_rows == 0``).  The host keeps a count mirror
   (``StreamJoinStats``) that sizes every buffer exactly; a run that
   overflowed anyway is never committed (compact-then-retry, doubling, and
   :class:`CapacityExceeded` last);
-* the device programs speak LOCAL ids (slot = id - base);
+* the device programs speak LOCAL ids (slot = id - base), and the base
+  stays a multiple of n, so a row's owner never moves;
 * communities are maintained incrementally: a host union-find, or
   ``connected_components`` on the device warm-started from the previous
   labels through star edges ``(label[v], v)``, or Bron-Kerbosch over the
@@ -44,13 +51,12 @@ the DELTA, not the world:
   the live window and drops the tombstones.
 
 The final update's result equals a one-shot ``AnotherMeEngine.run`` over
-the surviving rows, for any split into micro-batches, and every buffer
-equals the JAX engine's slot by slot, on both joins; the two joins give the
-same result.  ``n_shards > 1``, and ``score_mode="shuffle"`` with the device
-join, raise :class:`NotPortedError`; ``subtraj_window`` raises
-``NotImplementedError``, as in the JAX package.  ``REPRO_FAULT_INJECT=1``
-derates the device join's fresh capacity plans so its overflow recovery
-runs; results stay the same.  The host join has no capacity that can
+the surviving rows, for any split into micro-batches and at any shard
+count, and every buffer equals the JAX engine's slot by slot, on both joins
+and in both score modes; the two joins give the same result.
+``subtraj_window`` raises ``NotImplementedError``, as in the JAX package.
+``REPRO_FAULT_INJECT=1`` derates the device join's fresh capacity plans so
+its overflow recovery runs; results stay the same.  The host join has no capacity that can
 overflow, so, as in the JAX package, it changes nothing there.
 """
 from __future__ import annotations
@@ -63,11 +69,11 @@ import numpy as np
 import torch
 
 from repro_torch.api.engine import AnotherMeEngine, EngineConfig, ExecutionPlan
-from repro_torch.api.errors import CapacityExceeded, NotPortedError
+from repro_torch.api.errors import CapacityExceeded
 from repro_torch.api.instrumentation import Instrumentation
 from repro_torch.api.sharded import (
     StreamShardPlan, _positive_hash_np, _pow2, make_streaming_join_pipeline,
-    make_streaming_score_pipeline, sticky_join_plan,
+    make_streaming_score_pipeline, plan_stream_capacities, shard_chunks, sticky_join_plan,
 )
 from repro_torch.api.stages import _KERNEL_MODES, _score_with_kernel
 from repro_torch.core import communities as comm
@@ -107,7 +113,8 @@ def _derate_cap(cap: int) -> int:
 
 
 class StreamingEngine:
-    """Incremental AnotherMe over a fixed semantic forest, on one device.
+    """Incremental AnotherMe over a fixed semantic forest, on one device or
+    a mesh of shards (``ExecutionPlan(n_shards=n, devices=...)``).
 
     One instance owns the growing world; :meth:`update` ingests one
     micro-batch and returns the CURRENT world's :class:`EngineResult` (the
@@ -128,7 +135,8 @@ class StreamingEngine:
     max_resident_bytes: an update whose buffer growth would exceed this is
         refused with :class:`CapacityExceeded` before any mutation.
     compact_watermark: dead fraction at which the world is compacted.
-    device: where the world lives (None: the card; raises without one).
+    device: where the world lives (None: the card; raises without one); on
+        a mesh, the first shard's device.
 
     Build counters: the JAX engine counts the XLA traces of its device
     join's programs in ``join_traces`` and ``score_traces`` and the runners
@@ -180,12 +188,6 @@ class StreamingEngine:
                 "would invalidate resident window ids.  Use the batch "
                 "AnotherMeEngine for subtrajectory search."
             )
-        if plan.n_shards > 1:
-            raise NotPortedError(f"StreamingEngine with n_shards={plan.n_shards}")
-        if plan.delta_join == "device" and plan.score_mode != "replicate":
-            raise NotPortedError(
-                f"StreamingEngine with delta_join='device' and score_mode={plan.score_mode!r}"
-            )
         # the one-shot engine validates config/plan and owns the shared
         # pieces: forest tables, betas, backend, planner, device
         self._eng = AnotherMeEngine(forest, config, plan, device=device)
@@ -226,11 +228,18 @@ class StreamingEngine:
         self._lengths_np = np.zeros((0,), np.int32)
         self._codes_dev = None   # host join: [cap, H, L] int32 codes
         self._len_dev = None     # host join: [cap] int32 lengths
-        self._places_dev = None  # device join: [cap, L] int32 places slab
+        self._places_dev = None  # mesh world: [cap, L] int32 round-robin places
         self.delta_join = plan.delta_join
-        # the device join keeps the world in the JAX package's round-robin
-        # places layout (row g at slot g on one shard)
-        self._mesh_world = self.delta_join == "device"
+        # the device join, and any plan of n > 1 shards, keeps the world in
+        # the round-robin places slab of a mesh (row g at physical row
+        # (g % n) * cap_local + g // n; at one shard, row g)
+        self._mesh_world = plan.n_shards > 1 or self.delta_join == "device"
+        if self._mesh_world and plan.devices is not None \
+                and self._eng.mesh().devices[0] != self.device:
+            raise ValueError(
+                f"the world lives on the engine's device {self.device}; the mesh's "
+                f"first shard is on {self._eng.mesh().devices[0]}"
+            )
         self._index = BucketIndex()
         # the device join's resident sorted slab (PAD at the end) and its
         # host count mirror (empty on the host join: driver_mirror_keys)
@@ -242,11 +251,12 @@ class StreamingEngine:
         self._score_caps = None  # sticky (pair_cap, rest_cap) of the score
         #   function, from the join's post-dedup count
         self._slab_floor = int(join_slab_capacity or 0)
-        # one world shard: the serve-time REPOSE prune bounds
-        self.shard_summaries = ShardSummaries(plan.n_shards)
+        # per world shard: the serve-time REPOSE prune bounds
+        self.shard_summaries = ShardSummaries(plan.n_shards if self._mesh_world else 1)
         self._examined_total = 0
         self._join_runner_cache: dict = {}
         self._runner_cache: dict = {}
+        self._stream_plan: StreamShardPlan | None = None  # sticky (host join)
         self.join_traces = [0]
         self.score_traces = [0]
         self.runner_builds = 0
@@ -477,9 +487,7 @@ class StreamingEngine:
         unchanged."""
         if self.max_resident_bytes is None or not d:
             return
-        new_cap = self.planner.grow_capacity(
-            max(self._cap, self._cap_floor), self.n - self._base + d
-        )
+        new_cap = self._grown_capacity(self.n - self._base + d)
         slab_cap = self._slab_cap
         if self.delta_join == "device" and keys_np is not None:
             k_flat, _ = flat_row_keys(keys_np)
@@ -600,8 +608,12 @@ class StreamingEngine:
         t0 = time.perf_counter()
         base = self._base
         span = self.n - base
+        n_sh = self.plan.n_shards if self._mesh_world else 1
         live_idx = np.nonzero(self._alive_np[:span])[0]
-        shift = int(live_idx[0]) if live_idx.size else span
+        # the base stays a multiple of n_shards, so the round-robin owner
+        # g % n of every row is the same before and after the shift
+        first = int(live_idx[0]) if live_idx.size else span
+        shift = (first // n_sh) * n_sh
         if shift:
             keep = span - shift
             self._places_np[:keep] = self._places_np[shift:span]
@@ -610,12 +622,16 @@ class StreamingEngine:
             self._expiry_np[:keep] = self._expiry_np[shift:span]
             self._alive_np[keep:span] = False
             self._expiry_np[keep:span] = NEVER_EXPIRES
-            idx = (torch.arange(self._cap, device=self.device) + shift) % self._cap
             if self._codes_dev is not None:
+                idx = (torch.arange(self._cap, device=self.device) + shift) % self._cap
                 self._codes_dev = self._codes_dev.index_select(0, idx)
                 self._len_dev = self._len_dev.index_select(0, idx)
             if self._places_dev is not None:
-                self._places_dev = self._places_dev.index_select(0, idx)
+                # each shard's block rolls by shift // n
+                cl = self._cap // n_sh
+                idx = (torch.arange(cl, device=self.device) + shift // n_sh) % cl
+                self._places_dev = self._places_dev.reshape(n_sh, cl, -1).index_select(
+                    1, idx).reshape(self._cap, -1)
             if self._labels.shape[0] > shift:
                 self._labels = self._labels[shift:] - shift
             else:
@@ -628,26 +644,31 @@ class StreamingEngine:
         # the next update replans from the post-compaction mirror
         self._join_plan = None
         self._score_caps = None
+        self._stream_plan = None
         self._base = base + shift
         self.compactions += 1
         self.compact_ms_total += (time.perf_counter() - t0) * 1e3
 
     def _compact_slab(self, shift: int) -> None:
-        """Drop the slab's tombstones, rebase its rows by ``shift``, and
-        shrink it to the post-compaction plan (doubling, never lossy, if the
-        plan proves short)."""
+        """Drop each shard's slab tombstones, rebase its rows by ``shift``,
+        and shrink its segment to the post-compaction plan (doubling, never
+        lossy, if the plan proves short)."""
+        n_sh = self.plan.n_shards
         live = self._join_stats.owner_entries - self._join_stats.owner_dead
         want = int(max(np.max(live), 1) * self.planner.slack) if live.size else 1
         out_cap = max(4, _pow2(want))
         if self._slab_floor:
-            out_cap = max(out_cap, _pow2(-(-self._slab_floor // self.plan.n_shards)))
+            out_cap = max(out_cap, _pow2(-(-self._slab_floor // n_sh)))
+        keys = self._slab_keys.reshape(n_sh, self._slab_cap)
+        rows = self._slab_rows.reshape(n_sh, self._slab_cap)
         for _ in range(self.planner.max_retries + 1):
-            keys_o, rows_o, _, ovf = compact_slab(
-                self._slab_keys, self._slab_rows, shift, out_cap=out_cap)
-            if int(ovf) == 0:
+            out = [compact_slab(k, r, shift, out_cap=out_cap) for k, r in zip(keys, rows)]
+            if sum(int(o[3]) for o in out) == 0:
                 break
             out_cap *= 2
-        self._slab_keys, self._slab_rows, self._slab_cap = keys_o, rows_o, out_cap
+        self._slab_keys = torch.cat([o[0] for o in out])
+        self._slab_rows = torch.cat([o[1] for o in out])
+        self._slab_cap = out_cap
 
     # -- ingestion: world growth + device-resident appends -------------------
 
@@ -656,9 +677,7 @@ class StreamingEngine:
         d, Lb = places.shape
         new_L = max(self.L, Lb)
         span = self.n - self._base  # resident rows (live + tombstoned)
-        new_cap = self.planner.grow_capacity(
-            max(self._cap, self._cap_floor), span + d
-        )
+        new_cap = self._grown_capacity(span + d)
         rebuild = (new_L != self.L) or (new_cap != self._cap)
         if rebuild:
             grown = np.full((new_cap, new_L), PAD_PLACE, np.int32)
@@ -691,14 +710,23 @@ class StreamingEngine:
         # only the new rows go to the device, unless the world was rebuilt;
         # torch.tensor copies, so the device world never aliases the mirror
         if self._mesh_world:
-            # the places slab: at one shard row g sits at slot g
+            # the round-robin places slab: local id g at (g % n) * cl + g // n
+            # (the base is a multiple of n, so g % n is the global owner)
+            n_sh = self.plan.n_shards
+            cl = self._cap // n_sh
             if rebuild or self._places_dev is None:
-                self._places_dev = torch.tensor(self._places_np, device=self.device)
-                self._xfer["bytes_in"] += self._places_np.nbytes
+                g = np.arange(self.n - self._base, dtype=np.int64)
+                phys = np.full((self._cap, self.L), PAD_PLACE, np.int32)
+                phys[(g % n_sh) * cl + g // n_sh] = self._places_np[: g.shape[0]]
+                self._places_dev = torch.tensor(phys, device=self.device)
+                self._xfer["bytes_in"] += phys.nbytes
             else:
+                g = np.arange(n0l, n0l + d, dtype=np.int64)
+                idx = (g % n_sh) * cl + g // n_sh
                 new_places = self._places_np[rows]
-                self._places_dev[rows] = torch.tensor(new_places, device=self.device)
-                self._xfer["bytes_in"] += new_places.nbytes
+                self._places_dev[torch.tensor(idx, device=self.device)] = torch.tensor(
+                    new_places, device=self.device)
+                self._xfer["bytes_in"] += new_places.nbytes + idx.nbytes
         elif rebuild or self._codes_dev is None:
             self._codes_dev = encode_codes(
                 torch.tensor(self._places_np, device=self.device), self.tables
@@ -712,6 +740,16 @@ class StreamingEngine:
             )
             self._len_dev[rows] = torch.tensor(lengths, device=self.device)
             self._xfer["bytes_in"] += new_places.nbytes + lengths.nbytes
+
+    def _grown_capacity(self, needed: int) -> int:
+        """The world capacity covering ``needed`` resident rows: amortized
+        doubling, and on n > 1 shards n times a doubling of the per-shard
+        rows, so the round-robin blocks stay equal."""
+        cap = self.planner.grow_capacity(max(self._cap, self._cap_floor), needed)
+        n_sh = self.plan.n_shards
+        if n_sh > 1:
+            cap = n_sh * self.planner.grow_capacity(1, -(-cap // n_sh))
+        return cap
 
     # -- incremental candidate generation ------------------------------------
 
@@ -748,6 +786,13 @@ class StreamingEngine:
     # -- delta scoring through the one-shot lcs_impl dispatch ----------------
 
     def _score_delta(self, lo, hi):
+        """Score the host join's delta pairs: against the one-shard code
+        table, or through the score program on the mesh world."""
+        if self._mesh_world:
+            return self._score_delta_sharded(lo, hi)
+        return self._score_delta_single(lo, hi)
+
+    def _score_delta_single(self, lo, hi):
         """Score the delta pairs against the resident table.  The table is
         local-indexed, so the device gets LOCAL ids (g - base); the
         returned ids stay global."""
@@ -774,14 +819,57 @@ class StreamingEngine:
         return (lo.astype(np.int32), hi.astype(np.int32), to_numpy(lvl),
                 to_numpy(mss))
 
+    def _score_delta_sharded(self, lo, hi):
+        """Score the delta pairs on the mesh: contiguous per-shard chunks of
+        LOCAL ids at a sticky plan (monotone max while ``cap_local`` holds;
+        the fresh plan's chunk loads are computed under the sticky
+        ``pair_cap``), its owner hops doubled while they overflow."""
+        n_sh = self.plan.n_shards
+        cl = self._cap // n_sh
+        lo, hi = lo - self._base, hi - self._base
+        prev = self._stream_plan
+        sticky = prev is not None and prev.cap_local == cl
+        splan = plan_stream_capacities(
+            lo, hi, n_sh, cl, score_mode=self.plan.score_mode,
+            overlap_chunks=self.plan.overlap_chunks,
+            pair_cap_floor=prev.pair_cap if sticky else 0,
+        )
+        if sticky:
+            splan = StreamShardPlan(
+                n_shards=n_sh, cap_local=cl, pair_cap=max(splan.pair_cap, prev.pair_cap),
+                hop_cap=max(splan.hop_cap, prev.hop_cap),
+                out_cap=max(splan.out_cap, prev.out_cap), n_chunks=splan.n_chunks,
+            )
+            if self.plan.score_mode == "replicate":
+                splan = dataclasses.replace(splan, out_cap=splan.pair_cap)
+        for _ in range(self.planner.max_retries + 1):
+            out = self._run_stream_runner(splan, lo, hi)
+            if int(out["overflow"].sum()) == 0:
+                break
+            splan = dataclasses.replace(splan, hop_cap=max(splan.hop_cap, 1) * 2,
+                                        out_cap=splan.out_cap * 2)
+        self._stream_plan = splan
+        self._overflow += int(out["overflow"].sum())
+        return self._collect_scored(out)
+
+    def _run_stream_runner(self, splan, lo, hi):
+        """One run of the score program on the host join's pairs (pruned on
+        the host already, so the program does not prune)."""
+        runner = self._score_runner(splan, score_prune=False)
+        left, right = shard_chunks((lo, hi), splan.n_shards, splan.pair_cap, (PAD_ID, PAD_ID))
+        self._xfer["pair_rows"] += int(lo.shape[0])
+        self._xfer["bytes_in"] += left.nbytes + right.nbytes
+        return runner(self._places_dev, torch.tensor(left.reshape(-1), device=self.device),
+                      torch.tensor(right.reshape(-1), device=self.device), self.tables)
+
     # -- the device-resident delta join (delta_join="device") ---------------
 
     def _device_delta_join(self, keys_np, n_old: int):
         """Ship ONLY the new rows' key occurrences into the join function.
 
-        The resident slab is probed and merged on the device; the deduped
-        delta pairs rest there as ``[1, pair_cap]`` buffers that feed the
-        score function.  Returns ``(left_dev, right_dev, num_delta,
+        The resident slabs are probed and merged on the device; the deduped
+        delta pairs rest there as ``[n_shards, pair_cap]`` buffers that feed
+        the score program.  Returns ``(left_dev, right_dev, num_delta,
         max_delta, examined)``, ``max_delta`` the post-dedup count that
         sizes the score buffers.
 
@@ -825,10 +913,7 @@ class StreamingEngine:
             # local row ids, recomputed per attempt: a compaction in the
             # loop moves the base
             r_flat = (n_old - self._base + row_idx).astype(np.int32)
-            in_k = np.full((jplan.key_in_cap,), PAD_KEY, np.int32)
-            in_r = np.full((jplan.key_in_cap,), PAD_ID, np.int32)
-            in_k[: k_flat.shape[0]] = k_flat
-            in_r[: r_flat.shape[0]] = r_flat
+            in_k, in_r = shard_chunks((k_flat, r_flat), n_sh, jplan.key_in_cap, (PAD_KEY, PAD_ID))
             self._xfer["key_rows"] += int(k_flat.shape[0])
             self._xfer["bytes_in"] += in_k.nbytes + in_r.nbytes
             out, ovf = self._run_join(jplan, in_k, in_r)
@@ -880,11 +965,13 @@ class StreamingEngine:
         return out["left"], out["right"], num_delta, max_delta, examined
 
     def _run_join(self, jplan, in_k: np.ndarray, in_r: np.ndarray):
-        """One run of the join function on copies of the key buffers;
-        returns its outputs and the host copy of its per-stage overflow.
-        The run is timed into ``join_timing`` (CUDA events on the card)."""
+        """One run of the join program on copies of the key buffers;
+        returns its outputs and the host copy of its per-stage overflow
+        (summed over the shards).  The run is timed into ``join_timing``
+        (CUDA events on the card)."""
         dev = self.device
-        keys, rows = torch.tensor(in_k, device=dev), torch.tensor(in_r, device=dev)
+        keys = torch.tensor(in_k.reshape(-1), device=dev)
+        rows = torch.tensor(in_r.reshape(-1), device=dev)
         runner = self._join_runner(jplan)
         if dev.type == "cuda":
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -904,34 +991,44 @@ class StreamingEngine:
         return out, ovf
 
     def _ensure_slab(self, slab_cap: int) -> None:
-        """Allocate the slab, or regrow it to ``slab_cap`` by padding its
-        end on the device (valid entries stay at the front)."""
+        """Allocate the slabs, or regrow them to ``slab_cap`` a shard by
+        padding each shard's segment at its end on the device (valid
+        entries stay at the front; nothing goes through the host)."""
+        n_sh = self.plan.n_shards
         if self._slab_keys is None:
             self._slab_cap = slab_cap
-            n = self.plan.n_shards * slab_cap
+            n = n_sh * slab_cap
             self._slab_keys = torch.full((n,), PAD_KEY, dtype=torch.int32, device=self.device)
             self._slab_rows = torch.full((n,), PAD_ID, dtype=torch.int32, device=self.device)
         elif slab_cap > self._slab_cap:
             grow = (0, slab_cap - self._slab_cap)
-            self._slab_keys = torch.nn.functional.pad(self._slab_keys, grow, value=PAD_KEY)
-            self._slab_rows = torch.nn.functional.pad(self._slab_rows, grow, value=PAD_ID)
+            pad = torch.nn.functional.pad
+            self._slab_keys = pad(self._slab_keys.reshape(n_sh, -1), grow,
+                                  value=PAD_KEY).reshape(-1)
+            self._slab_rows = pad(self._slab_rows.reshape(n_sh, -1), grow,
+                                  value=PAD_ID).reshape(-1)
             self._slab_cap = slab_cap
 
     def _join_runner(self, jplan):
         runner = self._join_runner_cache.get(jplan)
         if runner is None:
-            runner = make_streaming_join_pipeline(jplan, trace_counter=self.join_traces)
+            runner = make_streaming_join_pipeline(self._eng.mesh(), jplan,
+                                                  axis_name=self.plan.axis_name,
+                                                  trace_counter=self.join_traces)
             self._join_runner_cache[jplan] = runner
             self.runner_builds += 1
         return runner
 
     def _score_device_pairs(self, left_dev, right_dev, max_delta, num_delta):
         """Score the join's resting delta pairs straight off their device
-        buffers, pruned in the score function under ``score_prune``.
+        buffers, pruned in the score program under ``score_prune``.
 
-        The buffers are cut to ``pow2(max_delta)`` columns, the post-dedup
-        count (dedup compacts the valid pairs to the front), not the join
-        plan's pre-dedup bound; the cut is sticky (monotone max).
+        The buffers are cut to ``pow2(max_delta)`` columns, the worst
+        per-shard post-dedup count (dedup compacts the valid pairs to the
+        front), not the join plan's pre-dedup bound.  In ``"shuffle"`` mode
+        the hop buckets and resting buffers take ``pow2(num_delta)``, the
+        global count (the hops may pile every pair onto one owner), and
+        double while they overflow.  Both caps are sticky (monotone max).
         """
         n_sh = self.plan.n_shards
         join_cap = int(left_dev.shape[-1])
@@ -941,28 +1038,39 @@ class StreamingEngine:
             pair_cap = min(max(pair_cap, self._score_caps[0]), join_cap)
             rest_cap = min(max(rest_cap, self._score_caps[1]), join_cap)
         self._score_caps = (pair_cap, rest_cap)
-        left_dev, right_dev = left_dev[:, :pair_cap], right_dev[:, :pair_cap]
-        splan = StreamShardPlan(n_shards=n_sh, cap_local=self._cap // n_sh,
-                                pair_cap=pair_cap, out_cap=pair_cap)
-        # "replicate" scores in place: nothing can overflow, so the JAX
-        # engine's retry loop runs once
-        out = self._score_runner(splan)(self._places_dev, left_dev.reshape(-1),
-                                        right_dev.reshape(-1), self.tables)
+        left_dev = left_dev[:, :pair_cap].reshape(-1)
+        right_dev = right_dev[:, :pair_cap].reshape(-1)
+        shuffle = self.plan.score_mode == "shuffle"
+        splan = StreamShardPlan(
+            n_shards=n_sh, cap_local=self._cap // n_sh, pair_cap=pair_cap,
+            hop_cap=rest_cap if shuffle else 0, out_cap=rest_cap if shuffle else pair_cap,
+        )
+        for _ in range(self.planner.max_retries + 1):
+            # pruning, if configured, runs in the program: the pairs are not
+            # on the host to be pruned there
+            runner = self._score_runner(splan, score_prune=self.config.score_prune)
+            out = runner(self._places_dev, left_dev, right_dev, self.tables)
+            if int(out["overflow"].sum()) == 0:
+                break
+            splan = dataclasses.replace(splan, hop_cap=max(splan.hop_cap, 1) * 2,
+                                        out_cap=splan.out_cap * 2)
         self._overflow += int(out["overflow"].sum())
         num_pruned = int(out["pruned"].sum())
         return (*self._collect_scored(out), num_pruned)
 
-    def _score_runner(self, splan):
-        """One score function per (plan, impl, wavefront dtype, world shape,
-        prune), as the JAX engine caches its compiled runners."""
+    def _score_runner(self, splan, *, score_prune: bool):
+        """One score program per (plan, mode, impl, wavefront dtype, world
+        shape, prune), shared by the host-pair and device-pair paths, as the
+        JAX engine caches its compiled runners."""
         key = (splan, self.plan.score_mode, self.config.lcs_impl,
-               wavefront_dtype_from_env(), self.L, self._H, self.config.score_prune)
+               wavefront_dtype_from_env(), self.L, self._H, score_prune)
         runner = self._runner_cache.get(key)
         if runner is None:
             runner = make_streaming_score_pipeline(
-                splan, betas=self.betas, score_mode=self.plan.score_mode,
-                lcs_impl=self.config.lcs_impl, trace_counter=self.score_traces,
-                score_prune=self.config.score_prune, prune_tau=self.config.rho,
+                self._eng.mesh(), splan, betas=self.betas, axis_name=self.plan.axis_name,
+                score_mode=self.plan.score_mode, lcs_impl=self.config.lcs_impl,
+                trace_counter=self.score_traces, score_prune=score_prune,
+                prune_tau=self.config.rho,
             )
             self._runner_cache[key] = runner
             self.runner_builds += 1

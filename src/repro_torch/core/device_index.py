@@ -1,10 +1,12 @@
 """Device-resident bucket state of the streaming join, and its host mirror.
 
-Port of ``repro/core/device_index.py`` at one shard.  With
+Port of ``repro/core/device_index.py``.  With
 ``ExecutionPlan(delta_join="device")`` the key -> [row ids] join state
-leaves the host and lives on the engine's device as a sorted slab:
+leaves the host and lives on the device as one sorted slab a shard (every
+(key, row) occurrence on shard ``hash(key) % n_shards``), a flat
+``[n_shards * cap]`` pair of tensors:
 
-  * ``slab_keys`` int32 ``[cap]``: every (key, row) occurrence, sorted
+  * ``slab_keys`` int32 ``[cap]`` a shard: its (key, row) occurrences, sorted
     ascending by key with ``PAD_KEY`` (= INT32_MAX) padding at the end, so
     one ``searchsorted`` finds any key's bucket as a contiguous run;
   * ``slab_rows`` int32 ``[cap]``: the row id of each slot (``PAD_ID`` in
@@ -12,7 +14,8 @@ leaves the host and lives on the engine's device as a sorted slab:
 
 The slab operations are torch ops on one shard's slab (sorts, searchsorted,
 cumsum and index writes; the JAX package writes them in ``jnp``, outside
-any Pallas kernel):
+any Pallas kernel), except :func:`mark_dead_rows`, which takes the flat
+slabs of every shard:
 
   :func:`probe_pairs`     this update's delta pairs: new-vs-old by a range
                           probe of the slab, new-vs-new by equal-key run

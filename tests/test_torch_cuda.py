@@ -1,5 +1,6 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card
-(and a short stream and a query batch against the same ones on the CPU).
+(and a short stream and a query batch, on one shard and on four, against the
+same ones on the CPU).
 
 Every test here launches a CUDA kernel and is marked ``cuda``: without a
 CUDA device it skips.  This file imports neither ``jax`` nor ``repro``, so
@@ -649,11 +650,12 @@ def _to(tree, dev):
 STREAM_WORLD = dict(num_types=8, classes_per_type=3, num_places=80, seed=4)
 
 
-def _streams(cuda, impl, components_impl, backend="ssh", n=600, delta_join="host"):
+def _streams(cuda, impl, components_impl, backend="ssh", n=600, delta_join="host", shards=1,
+             mode="replicate", oc=1):
     """The same short stream (5 micro-batches, window 3, a TTL of 2 on batch
     1, a retire after update 2) on the card with ``impl`` and on the CPU
-    with the plain wavefront, both on ``delta_join``.  Returns {device:
-    (engine, [result per update])}."""
+    with the plain wavefront, both on ``delta_join`` and ``shards`` shards
+    of their device.  Returns {device: (engine, [result per update])}."""
     from repro_torch.api import ExecutionPlan, StreamingEngine
     from repro_torch.core.types import TrajectoryBatch
 
@@ -661,8 +663,9 @@ def _streams(cuda, impl, components_impl, backend="ssh", n=600, delta_join="host
     out = {}
     for dev, lcs_impl in ((cuda, impl), ("cpu", "wavefront")):
         batch, forest = synthetic_setup(n, device=dev, **STREAM_WORLD)
-        engine = StreamingEngine(forest, EngineConfig(lcs_impl=lcs_impl, **cfg),
-                                 ExecutionPlan(delta_join=delta_join),
+        plan = ExecutionPlan(delta_join=delta_join, n_shards=shards, devices=(dev,) * shards,
+                             score_mode=mode, overlap_chunks=oc)
+        engine = StreamingEngine(forest, EngineConfig(lcs_impl=lcs_impl, **cfg), plan,
                                  components_impl=components_impl, window=3, device=dev)
         step, results = n // 5, []
         for u in range(5):
@@ -725,6 +728,39 @@ def test_query_batch_on_the_card_equals_cpu(cuda, impl, serve_prune, delta_join)
     assert (got.match_ids != 2**31 - 1).any()
     kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
     assert kern.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,backend,delta_join,mode,oc", [
+    ("fused", "ssh", "host", "replicate", 1), ("kernel", "ssh", "host", "shuffle", 4),
+    ("fused", "minhash", "device", "replicate", 1), ("kernel", "ssh", "device", "shuffle", 1),
+])
+def test_sharded_stream_on_the_card_equals_cpu(cuda, impl, backend, delta_join, mode, oc):
+    """Four shards on the card against the plain wavefront on the CPU (one
+    shard), update by update, then a query batch over each world."""
+    from repro_torch.api import QueryEngine
+
+    card, got = _streams(cuda, impl, "unionfind", backend, delta_join=delta_join, shards=4,
+                         mode=mode, oc=oc)[cuda]
+    cpu, want = _streams(cuda, impl, "unionfind", backend, delta_join=delta_join)["cpu"]
+    for u, (g, w) in enumerate(zip(got, want)):
+        for field in ("left", "right", "level_lcs", "mss"):
+            assert torch.equal(getattr(g.scored, field).cpu(), getattr(w.scored, field)), (u, field)
+        assert g.similar_pairs == w.similar_pairs and g.communities == w.communities, u
+        assert g.stats["pairs_examined"] == w.stats["pairs_examined"], u
+    assert card.compactions >= 1 and card._base % 4 == 0
+    assert {d.type for d in card._eng.mesh().devices} == {"cuda"}
+    kern = tfused.fused_gather_score if impl == "fused" else tkernel.lcs_kernel
+    assert kern.launches > 0
+    assert (tmhk.minhash_kernel.launches > 0) == (backend == "minhash")
+    for prune in (False, True):
+        res = []
+        for stream, dev in ((card, cuda), (cpu, "cpu")):
+            queries, _ = synthetic_setup(40, device=dev, **{**STREAM_WORLD, "seed": 11})
+            res.append(QueryEngine(stream, k=5, serve_prune=prune).query(queries))
+        assert np.array_equal(res[0].match_ids, res[1].match_ids)
+        assert np.array_equal(res[0].mss, res[1].mss)
+        assert (res[0].match_ids != 2**31 - 1).any()
 
 
 # ---------------------------------------------------------------------------

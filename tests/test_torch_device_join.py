@@ -41,10 +41,13 @@ from repro_torch.api import (
 )
 from repro_torch.api import sharded as tsharded
 from repro_torch.api import streaming as tstreaming
+from repro_torch.core import compat as tcompat
 from repro_torch.core import device_index as tdi
 from repro_torch.core.types import PAD_ID, PAD_KEY
 
-from tests.test_torch_streaming import Pair, assert_same, jbatch, pieces, tbatch, world
+from tests.test_torch_streaming import (
+    Pair, assert_same, assert_same_result, jbatch, pieces, tbatch, world,
+)
 
 CPU = "cpu"
 DEVICE = {"delta_join": "device"}
@@ -303,7 +306,8 @@ def test_join_pipeline_matches_jax(mesh, caps):
     plan = tsharded.StreamJoinPlan(n_shards=1, slab_cap=128, key_in_cap=32, **caps)
     jplan = jsharded.StreamJoinPlan(**dataclasses.asdict(plan))
     t_counter, j_counter = [0], [0]
-    t_fn = tsharded.make_streaming_join_pipeline(plan, trace_counter=t_counter)
+    t_fn = tsharded.make_streaming_join_pipeline(tcompat.make_mesh((1,), ("ex",), devices=(CPU,)),
+                                                 plan, trace_counter=t_counter)
     j_fn = jsharded.make_streaming_join_pipeline(mesh, jplan, trace_counter=j_counter)
     kk, rr = random_slab(rng, 128, 24, dead=0.0, first_row=0)
     for step in range(3):
@@ -328,13 +332,15 @@ def test_score_pipeline_matches_jax(mesh, impl, prune):
     pairs = np.sort(rng.integers(0, places.shape[0], size=(40, 2)), axis=1).astype(np.int32)
     left = pad_flat(pairs[:, 0].tolist(), 64, PAD_ID)
     right = pad_flat(pairs[:, 1].tolist(), 64, PAD_ID)
-    plan = tsharded.StreamShardPlan(n_shards=1, cap_local=cap, pair_cap=64, out_cap=64)
+    plan = tsharded.StreamShardPlan(n_shards=1, cap_local=cap, pair_cap=64, hop_cap=0,
+                                    out_cap=64)
     t_eng = StreamingEngine(tf, EngineConfig(rho=4.5), device=CPU)
     j_eng = japi.StreamingEngine(jf, japi.EngineConfig(rho=4.5))
     t_fn = tsharded.make_streaming_score_pipeline(
-        plan, betas=t_eng.betas, lcs_impl=impl, score_prune=prune, prune_tau=4.5)
+        tcompat.make_mesh((1,), ("ex",), devices=(CPU,)), plan, betas=t_eng.betas,
+        lcs_impl=impl, score_prune=prune, prune_tau=4.5)
     j_fn = jsharded.make_streaming_score_pipeline(
-        mesh, jsharded.StreamShardPlan(hop_cap=0, **dataclasses.asdict(plan)), betas=j_eng.betas,
+        mesh, jsharded.StreamShardPlan(**dataclasses.asdict(plan)), betas=j_eng.betas,
         lcs_impl="wavefront", score_prune=prune, prune_tau=4.5)
     got = t_fn(torch.tensor(slab), torch.tensor(left), torch.tensor(right), t_eng.tables)
     want = j_fn(jnp.asarray(slab), jnp.asarray(left), jnp.asarray(right), j_eng.tables)
@@ -343,16 +349,83 @@ def test_score_pipeline_matches_jax(mesh, impl, prune):
 
 
 def test_one_shard_only():
-    plan = tsharded.StreamJoinPlan(n_shards=2, slab_cap=16, key_in_cap=16, key_route_cap=16,
-                                   nn_cap=16, no_cap=16, pair_route_cap=16, pair_cap=16)
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        tsharded.make_streaming_join_pipeline(plan)
-    splan = tsharded.StreamShardPlan(n_shards=1, cap_local=16, pair_cap=16, out_cap=16)
-    with pytest.raises(NotPortedError, match="shuffle"):
-        tsharded.make_streaming_score_pipeline(splan, betas=torch.ones(3), score_mode="shuffle")
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        tsharded.make_streaming_score_pipeline(dataclasses.replace(splan, n_shards=2),
-                                               betas=torch.ones(3))
+    """The join and score programs on a mesh of two CPU shards against the
+    same programs on one: the union of the shards' deduped pairs, their
+    counts and examined counts, each shard's merged slab (the one-shard
+    slab's entries of the keys it owns, in order), and every pair's score
+    in both score modes."""
+    rng = np.random.default_rng(19)
+    meshes = {n: tcompat.make_mesh((n,), ("ex",), devices=(CPU,) * n) for n in (1, 2)}
+    caps = dict(slab_cap=128, key_in_cap=32, key_route_cap=32, nn_cap=256, no_cap=256,
+                pair_route_cap=512, pair_cap=256)
+    join = {n: tsharded.make_streaming_join_pipeline(
+        meshes[n], tsharded.StreamJoinPlan(n_shards=n, **caps)) for n in (1, 2)}
+    kk, rr = random_slab(rng, 128, 40, dead=0.2, first_row=0)
+    owner = tsharded._positive_hash_np(kk) % 2
+    halves = [make_slab([(int(k), int(r)) for k, r, o in zip(kk, rr, owner)
+                         if k != PAD_KEY and o == s], 128) for s in (0, 1)]
+    keys, rows = random_incoming(rng, 32, 24, first_row=40)
+    one = join[1](*(torch.tensor(a) for a in (kk, rr, keys, rows)))
+    two = join[2](torch.tensor(np.concatenate([h[0] for h in halves])),
+                  torch.tensor(np.concatenate([h[1] for h in halves])),
+                  torch.tensor(np.concatenate([keys[:16], np.full(16, PAD_KEY, np.int32),
+                                               keys[16:], np.full(16, PAD_KEY, np.int32)])),
+                  torch.tensor(np.concatenate([rows[:16], np.full(16, PAD_ID, np.int32),
+                                               rows[16:], np.full(16, PAD_ID, np.int32)])))
+
+    def pairs(out):
+        left, right = out["left"].reshape(-1), out["right"].reshape(-1)
+        ok = left != PAD_ID
+        return sorted(zip(left[ok].tolist(), right[ok].tolist()))
+
+    assert pairs(two) == pairs(one) and len(pairs(one)) > 0
+    assert int(two["count"].sum()) == int(one["count"].sum())
+    assert two["max_count"].tolist() == [int(two["count"].max())] * 2
+    assert int(two["examined"].sum()) == int(one["examined"].sum())
+    assert int(two["overflow"].sum()) == int(one["overflow"].sum()) == 0
+    merged = (one["slab_keys"].numpy(), one["slab_rows"].numpy())
+    for s in (0, 1):
+        sk = two["slab_keys"].reshape(2, 128)[s].numpy()
+        sr = two["slab_rows"].reshape(2, 128)[s].numpy()
+        mine = (merged[0] != PAD_KEY) & (tsharded._positive_hash_np(merged[0]) % 2 == s)
+        n = int(mine.sum())
+        np.testing.assert_array_equal(sk[:n], merged[0][mine])
+        np.testing.assert_array_equal(sr[:n], merged[1][mine])
+        assert (sk[n:] == PAD_KEY).all()
+
+    places, lengths, _, tf = world(21, n=40)
+    t_eng = StreamingEngine(tf, EngineConfig(rho=4.5), device=CPU)
+    L = places.shape[1]
+    lo, hi = (np.sort(rng.integers(0, 40, size=(40, 2)), axis=1).astype(np.int32).T)
+    world1 = np.full((64, L), -1, np.int32)
+    world1[:40] = places
+    g = np.arange(64)
+    world2 = np.full((64, L), -1, np.int32)
+    world2[(g % 2) * 32 + g // 2] = world1  # the round-robin slab
+    for mode, chunks in (("replicate", 1), ("shuffle", 1), ("shuffle", 2)):
+        scored = {}
+        for n, slab in ((1, world1), (2, world2)):
+            plan = tsharded.StreamShardPlan(n_shards=n, cap_local=64 // n, pair_cap=64 // n,
+                                            hop_cap=64, out_cap=64, n_chunks=chunks)
+            if mode == "replicate":
+                plan = dataclasses.replace(plan, hop_cap=0, out_cap=plan.pair_cap)
+            left = np.full((n, 64 // n), PAD_ID, np.int32)
+            right = np.full((n, 64 // n), PAD_ID, np.int32)
+            for s in range(n):
+                seg = slice(s * 40 // n, (s + 1) * 40 // n)
+                left[s, : seg.stop - seg.start], right[s, : seg.stop - seg.start] = lo[seg], hi[seg]
+            fn = tsharded.make_streaming_score_pipeline(
+                meshes[n], plan, betas=t_eng.betas, score_mode=mode, lcs_impl="fused",
+                score_prune=True, prune_tau=4.5)
+            out = fn(torch.tensor(slab), torch.tensor(left.reshape(-1)),
+                     torch.tensor(right.reshape(-1)), t_eng.tables)
+            assert int(out["overflow"].sum()) == 0
+            ok = out["left"].reshape(-1) != PAD_ID
+            scored[n] = (int(out["pruned"].sum()), sorted(zip(
+                out["left"].reshape(-1)[ok].tolist(), out["right"].reshape(-1)[ok].tolist(),
+                map(tuple, out["level_lcs"].reshape(ok.shape[0], -1)[ok].tolist()),
+                out["mss"].reshape(-1)[ok].tolist())))
+        assert scored[2] == scored[1] and scored[1][0] > 0 and scored[1][1], mode
 
 
 # ---------------------------------------------------------------------------
@@ -569,12 +642,17 @@ def test_join_timing_splits_mirror_and_program():
 
 
 def test_refusals():
-    _, _, _, tf = world(0, n=4)
-    with pytest.raises(NotPortedError, match="score_mode='shuffle'"):
-        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device", score_mode="shuffle"),
+    places, lengths, _, tf = world(0, n=12)
+    # shuffle mode and two shards run on the device join, and equal one shard
+    for plan in (ExecutionPlan(delta_join="device", score_mode="shuffle"),
+                 ExecutionPlan(delta_join="device", n_shards=2, devices=(CPU,) * 2)):
+        got = StreamingEngine(tf, plan=plan, device=CPU)
+        want = StreamingEngine(tf, plan=ExecutionPlan(**DEVICE), device=CPU)
+        for p, ln in pieces(places, lengths, [5]):
+            assert_same_result(got.update(tbatch(p, ln)), want.update(tbatch(p, ln)), str(plan))
+    with pytest.raises(NotPortedError, match="autotune"):
+        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device", n_shards=2, autotune=True),
                         device=CPU)
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device", n_shards=2), device=CPU)
     # the host join ignores score_mode, as the JAX engine's one-device path
     assert StreamingEngine(tf, plan=ExecutionPlan(score_mode="shuffle"), device=CPU)._index
     assert tstreaming._derate_cap(1024) == 128 and tstreaming._derate_cap(8) == 16

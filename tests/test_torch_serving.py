@@ -24,7 +24,7 @@ import repro.api.serving as jserving
 import repro.data as jdata
 from repro.core.types import TrajectoryBatch as JBatch
 from repro_torch.api import (
-    CapacityPlanner, EngineConfig, ExecutionPlan, NotPortedError, QueryEngine, StreamingEngine,
+    CapacityPlanner, EngineConfig, ExecutionPlan, QueryEngine, StreamingEngine,
 )
 from repro_torch.api import serving as tserving
 from repro_torch.core import device_index as tdi
@@ -260,17 +260,29 @@ def dataclasses_equal(a, b):
 
 
 def test_refusals():
-    """The probe follows the world's join; more than one shard refuses."""
+    """The probe follows the world's join; the probe and score programs run
+    on two shards, and the answers over two-shard worlds (both joins) equal
+    the one-shard world's."""
     places, lengths, jf, tf = world(n=6)
     stream = StreamingEngine(tf, EngineConfig(rho=RHO), device=CPU)
     assert isinstance(QueryEngine(stream)._prober, tserving._HostProber)
     dev = StreamingEngine(tf, EngineConfig(rho=RHO), ExecutionPlan(delta_join="device"), device=CPU)
     assert isinstance(QueryEngine(dev)._prober, tserving._SlabProber)
-    plan = tserving.QueryPlan(n_shards=2, cap_local=16, L_pad=8, q_cap=4, k_cap=4, cand_cap=4)
-    with pytest.raises(NotPortedError, match="make_query_probe_pipeline with n_shards=2"):
-        tserving.make_query_probe_pipeline(plan)
-    with pytest.raises(NotPortedError, match="make_query_score_pipeline with n_shards=2"):
-        tserving.make_query_score_pipeline(plan, betas=stream.betas, places_world=True)
+    places, lengths, jf, tf = world(n=20)
+    cfg = EngineConfig(rho=RHO, k=1)
+    one = StreamingEngine(tf, cfg, device=CPU)
+    one.update(tbatch(places, lengths))
+    want = QueryEngine(one, k=4).query(tbatch(places[:5], lengths[:5]))
+    for join in ("host", "device"):
+        two = StreamingEngine(tf, cfg, ExecutionPlan(n_shards=2, devices=(CPU,) * 2,
+                                                     delta_join=join), device=CPU)
+        two.update(tbatch(places, lengths))
+        for prune in (False, True):
+            got = QueryEngine(two, k=4, serve_prune=prune).query(tbatch(places[:5], lengths[:5]))
+            np.testing.assert_array_equal(got.match_ids, want.match_ids)
+            np.testing.assert_array_equal(got.mss, want.mss)
+            assert got.stats["rounds_run"] + got.stats["rounds_skipped"] == (2 if prune else 1)
+    assert (want.match_ids != PAD_ID).any()
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +387,8 @@ def test_device_probe_and_score_functions_match_jax():
     in_q = np.full((plan.key_in_cap,), PAD_ID, np.int32)
     in_k[: k_flat.size], in_q[: q_flat.size] = k_flat, q_flat
     t_counter, j_counter = [0], [0]
-    got = tserving.make_query_probe_pipeline(plan, trace_counter=t_counter)(
+    t_mesh = ts._eng.mesh()
+    got = tserving.make_query_probe_pipeline(t_mesh, plan, trace_counter=t_counter)(
         ts._slab_keys, ts._slab_rows, torch.tensor(in_k), torch.tensor(in_q))
     want = jserving.make_query_probe_pipeline(mesh, jplan, trace_counter=j_counter)(
         js._slab_keys, js._slab_rows, jnp.asarray(in_k), jnp.asarray(in_q))
@@ -390,8 +403,7 @@ def test_device_probe_and_score_functions_match_jax():
     prev_neg = np.full((plan.q_cap, plan.k_cap), np.inf, np.float32)
     args = (q_places, rho, active, prev_row, prev_neg)
     for impl in ("wavefront", "fused"):
-        t_fn = tserving.make_query_score_pipeline(plan, betas=ts.betas, places_world=True,
-                                                  lcs_impl=impl)
+        t_fn = tserving.make_query_score_pipeline(t_mesh, plan, betas=ts.betas, lcs_impl=impl)
         j_fn = jserving.make_query_score_pipeline(mesh, jplan, betas=js.betas)
         out_t = t_fn(ts._places_dev, got["cand_row"].reshape(-1), got["cand_qid"].reshape(-1),
                      *(torch.tensor(a) for a in args), ts.tables)

@@ -36,7 +36,7 @@ from repro_torch.api import (
 from repro_torch.api import engine as tengine
 from repro_torch.api import sharded as tsharded
 from repro_torch.core import compat
-from repro_torch.core.types import PAD_ID, PAD_KEY
+from repro_torch.core.types import PAD_ID, PAD_KEY, TrajectoryBatch
 from repro_torch.data import synthetic_setup
 from repro_torch.launch.mesh import make_executor_mesh
 
@@ -424,11 +424,16 @@ def test_sharded_refusals(world):
     with pytest.raises(NotPortedError, match="autotune"):
         AnotherMeEngine(forest, EngineConfig(), ExecutionPlan(n_shards=4, autotune=True),
                         device=CPU)
-    with pytest.raises(NotPortedError, match="n_shards=4"):
-        StreamingEngine(forest, EngineConfig(), sharded, device=CPU)
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        StreamingEngine(forest, EngineConfig(), ExecutionPlan(n_shards=2, delta_join="device"),
-                        device=CPU)
+    # the streaming engine runs on the mesh, on both joins, and equals one shard
+    stream = TrajectoryBatch(places=batch.places[:60], lengths=batch.lengths[:60],
+                             user_id=batch.user_id[:60])
+    cfg = EngineConfig(community_mode="components")
+    one = StreamingEngine(forest, cfg, device=CPU).update(stream)
+    for plan in (sharded, ExecutionPlan(n_shards=2, delta_join="device", devices=(CPU,) * 2)):
+        got = StreamingEngine(forest, cfg, plan, device=CPU).update(stream)
+        for f in ("left", "right", "level_lcs", "mss"):
+            assert torch.equal(getattr(got.scored, f), getattr(one.scored, f)), (plan, f)
+        assert got.similar_pairs == one.similar_pairs and got.communities == one.communities
     with pytest.raises(ValueError, match="no join keys"):
         AnotherMeEngine(forest, EngineConfig(), sharded, device=CPU,
                         backend=CallableBackend(lambda enc, b: None))
@@ -437,8 +442,17 @@ def test_sharded_refusals(world):
     with pytest.raises(ValueError, match="needs 4 devices"):
         AnotherMeEngine(forest, EngineConfig(), ExecutionPlan(n_shards=4, devices=(CPU,) * 2),
                         device=CPU).run(batch)
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        tsharded.make_streaming_join_pipeline(tsharded.StreamJoinPlan(2, *[16] * 7))
+    # the join program runs on two shards: no keys in, empty slabs out
+    join = tsharded.make_streaming_join_pipeline(compat.make_mesh((2,), ("ex",), devices=(CPU,) * 2),
+                                                 tsharded.StreamJoinPlan(2, *[16] * 7))
+    pad = torch.full((32,), PAD_KEY, dtype=torch.int32)
+    out = join(pad, torch.full((32,), PAD_ID, dtype=torch.int32), pad,
+               torch.full((32,), PAD_ID, dtype=torch.int32))
+    assert out["left"].shape == (2, 16) and bool((out["left"] == PAD_ID).all())
+    assert out["count"].tolist() == [0, 0] and int(out["overflow"].sum()) == 0
+    with pytest.raises(ValueError, match="plan of 2 shards"):
+        tsharded.make_streaming_join_pipeline(compat.make_mesh((1,), ("ex",), devices=(CPU,)),
+                                              tsharded.StreamJoinPlan(2, *[16] * 7))
     if not torch.cuda.is_available():
         # the default mesh is the first n CUDA devices: none here
         with pytest.raises(ValueError, match="CUDA devices"):

@@ -295,12 +295,14 @@ def test_world_growth_and_preallocation_match_jax():
 
 
 def test_refusals():
-    _, _, _, tf = world(0, n=4)
-    with pytest.raises(NotPortedError, match="score_mode='shuffle'"):
-        StreamingEngine(tf, plan=ExecutionPlan(delta_join="device", score_mode="shuffle"),
-                        device=CPU)
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2), device=CPU)
+    places, lengths, _, tf = world(0, n=12)
+    # the device join in shuffle mode and two shards run, and equal one shard
+    one = StreamingEngine(tf, device=CPU).update(tbatch(places, lengths))
+    for plan in (ExecutionPlan(delta_join="device", score_mode="shuffle"),
+                 ExecutionPlan(n_shards=2, devices=(CPU,) * 2),
+                 ExecutionPlan(n_shards=2, delta_join="device", devices=(CPU,) * 2)):
+        got = StreamingEngine(tf, plan=plan, device=CPU).update(tbatch(places, lengths))
+        assert_same_result(got, one, str(plan))
     with pytest.raises(NotImplementedError, match="subtraj_window"):
         StreamingEngine(tf, EngineConfig(subtraj_window=4), device=CPU)
     with pytest.raises(ValueError, match="components_impl"):
@@ -311,8 +313,20 @@ def test_refusals():
         StreamingEngine(tf, window=0, device=CPU)
     with pytest.raises(ValueError, match="micro-batch"):
         StreamingEngine(tf, device=CPU).update_many([])
-    with pytest.raises(NotPortedError, match="n_shards=2"):
-        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, delta_join="device"), device=CPU)
+    with pytest.raises(NotPortedError, match="autotune"):
+        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, autotune=True), device=CPU)
+    with pytest.raises(ValueError, match="first shard"):  # the world lives on shard 0
+        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, devices=("meta",) * 2), device=CPU)
+
+
+def assert_same_result(got, want, where=""):
+    """Two streaming results of the same rows equal: the scored buffer slot
+    by slot, the similar pairs and the communities."""
+    for field in ("left", "right", "level_lcs", "mss", "count", "overflow"):
+        assert torch.equal(getattr(got.scored, field), getattr(want.scored, field)), \
+            (where, field)
+    assert got.similar_pairs == want.similar_pairs, where
+    assert got.communities == want.communities, where
 
 
 def test_default_device_is_the_card():
