@@ -159,6 +159,32 @@ phases, and exits non-zero if any phase fails:
    peak memory and the output stack of the merged slabs (ms, bytes) logged.
 18e. serve device sharded — the serve phase's batches over that world,
    against the one-shard world's answers.
+18f. tune — the LCS sweep (``repro_torch.perf.tune``) on the card, its smoke
+   grid and one cell on the LCS kernel's shared route (L = 40), into a
+   scratch table: each candidate's launched block, time and bit-identity,
+   the winner; the table loads back under the card's header and a
+   CPU-headed table loads empty on the card.
+18g. autotune — ``autotune=True`` against the untuned run on the GeoLife
+   surrogate cut to 2,000 trajectories, with a table holding a record for
+   the one-shot run's exact (P, H, L): one shard ("kernel", #2, and
+   "fused", #1; ``plan_tuning`` returns the record), four shards of the card
+   (replicate and shuffle, the runner built with the record), and a 4-update
+   host-join and device-join stream: scored buffers slot by slot, similar
+   pairs, communities and build counts equal.
+18h. geolife — the GeoLife surrogate at the paper's full scale (182 users,
+   17,621 trajectories, rho 3.0), "fused" (#1), components: phase seconds,
+   pair capacity, candidates, similar pairs, peak memory, a 2^20-pair slice
+   re-scored by the plain version; fig11's quick grid (60 users, 1,200) with
+   "ssh" and "minhash" (#5) equal to the port's CPU run, QA1/QA2 against the
+   centralized truth (ssh exactly 1.000).
+18i. dedup — ``ssh_dedup`` over a 14,000-document corpus of 1,024 tokens
+   with planted near-duplicates (granite-3-8b's vocabulary) on the card
+   against the CPU (keep mask and stats equal; no kernel: the reference
+   scores with the plain wavefront), the planted duplicates' recall, and
+   ``TokenDataset`` batches on the card against the CPU's, two shards
+   against one.
+18j. examples — ``examples/torch_quickstart.py`` and
+   ``examples/torch_find_another_me.py`` on the card, last lines checked.
 19. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
    64/80/128, GQA 1 and 4, causal and not; float32 on the CUDA-core route,
@@ -194,11 +220,14 @@ entry per kernel; the last line is
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -269,6 +298,22 @@ SERVE_K = 10
 # least 5 places, so the bound min(len) > 2 prunes nothing at RHO)
 SHARDS = 4
 PRUNE_RHO = 5.5
+# tuning and autotune=True: the sweep's smoke grid plus a cell on the LCS
+# kernel's shared route (L > 32); the GeoLife surrogate cut to 2,000
+# trajectories for the tuned-against-untuned runs (4,000 took 10.8 s)
+TUNE_SHARED_CELL = (4096, 3, 40)
+AUTOTUNE_N = 2_000
+# the GeoLife surrogate at the paper's full scale (fig11/12: 182 users,
+# 17,621 trajectories, rho 3.0)
+GEOLIFE_USERS, GEOLIFE_N, GEOLIFE_RHO = 182, 17_621, 3.0
+# SSH corpus dedup: documents of 1,024 tokens over granite-3-8b's vocabulary
+# (configs/granite_3_8b.py), cut from 100,000 to 14,000 documents to keep the
+# script near its 600 s aim: the phase's comparison run on the CPU took 55 s
+# at 20,000 documents (a pair buffer of 2^23 slots; 2^22 at 14,000), and
+# unrelated documents share a 3-shingle of their 16 anchors with probability
+# ~C(16,3)^2/300^3 = 1.2% (arithmetic), so the candidates grow with about the
+# square of the corpus
+DEDUP_N, DEDUP_SEQ, GRANITE_VOCAB = 14_000, 1_024, 49_155
 
 
 class SmokeFailure(RuntimeError):
@@ -442,6 +487,10 @@ def phase_kernels(torch, dev, table_shape=(MAIN_N, 3, 10), pairs=4_000_037, big_
         f"random_B{big_b}_L10": rows(big_b, 10),
         # either side of the routes, ragged tiles of the register route
         **{f"L{L}_B{B}": rows(B, L) for L in (1, 8, 32, 33) for B in (1, 127, 129)},
+        # the widths of the GeoLife world (16) and of the tune phase's
+        # shared-route cell (40)
+        "L16": rows(30_011, 16),
+        "L40": rows(30_011, 40),
         # rows at a 40-byte offset: the register route's scalar staging
         "unaligned_L10": (unaligned[0][1:], unaligned[1][1:]),
         # valid codes -2 in a and -1 in b, equal to the other side's pads
@@ -1502,8 +1551,10 @@ def phase_accuracy(torch, dev, n=FIG10_N, udf_n=UDF_N):
         f"({len(similar)} similar pairs, udf {time.perf_counter() - t0:.3f}s)")
 
 
-def _rescore_slice(torch, engine, batch, res, slice_pairs, tag):
-    """Re-score a slice of an engine's scored buffer with the plain version."""
+def _rescore_slice(torch, engine, batch, res, slice_pairs, tag, rho=RHO, pads_masked=False):
+    """Re-score a slice of an engine's scored buffer with the plain version.
+    ``pads_masked``: the buffer's PAD slots hold a masked score (the sharded
+    engine's), so only its valid slots are compared."""
     from repro_torch.core.encoding import encode_batch
     from repro_torch.core.types import PAD_ID
     from repro_torch.kernels.lcs import fused
@@ -1514,16 +1565,18 @@ def _rescore_slice(torch, engine, batch, res, slice_pairs, tag):
     check(int(valid.sum()) == int(sc.count) == res.stats["num_candidates"] > 0, f"{tag}: pair count")
     check(int(sc.overflow) == 0, f"{tag}: join overflowed")
     check(bool(torch.isfinite(sc.mss).all()), f"{tag}: non-finite mss")
-    check(int((valid & (sc.mss > RHO)).sum()) == len(res.similar_pairs),
+    check(int((valid & (sc.mss > rho)).sum()) == len(res.similar_pairs),
           f"{tag}: similar set disagrees with mss > rho")
     s = slice(0, min(slice_pairs, sc.left.shape[0]))
     li = torch.where(sc.left[s] == PAD_ID, 0, sc.left[s])
     ri = torch.where(sc.right[s] == PAD_ID, 0, sc.right[s])
     want_lvl, want_mss = fused.fused_gather_score_plain(
         enc.codes, enc.lengths, enc.codes, enc.lengths, li, ri, engine.betas)
-    check(torch.equal(sc.level_lcs[s], want_lvl) and torch.equal(sc.mss[s], want_mss),
-          f"{tag}: scored slice != plain")
-    log(f"{tag}: slice of {s.stop} scored pairs bit-equal to the plain version")
+    keep = valid[s] if pads_masked else slice(None)
+    check(torch.equal(sc.level_lcs[s][keep], want_lvl[keep])
+          and torch.equal(sc.mss[s][keep], want_mss[keep]), f"{tag}: scored slice != plain")
+    log(f"{tag}: slice of {s.stop} scored pairs bit-equal to the plain version"
+        + (f" ({int(valid[s].sum())} valid slots)" if pads_masked else ""))
     return enc
 
 
@@ -1663,14 +1716,14 @@ def phase_timing_minhash(torch, minhash_types, minhash_counts):
 # streaming ingestion and top-k serving over the host-join world
 # ---------------------------------------------------------------------------
 def _stream(dev, forest, impl, components_impl="unionfind", backend="ssh", window=None,
-            delta_join="host", n=1, mode="replicate", oc=1, **cfg):
+            delta_join="host", n=1, mode="replicate", oc=1, autotune=False, **cfg):
     """A streaming engine on ``dev``; ``n > 1`` places its n shards there."""
     from repro_torch.api import EngineConfig, ExecutionPlan, StreamingEngine
 
     cfg.setdefault("community_mode", "components")
     cfg.setdefault("rho", RHO)
     plan = ExecutionPlan(delta_join=delta_join, n_shards=n, devices=(dev,) * n, score_mode=mode,
-                         overlap_chunks=oc)
+                         overlap_chunks=oc, autotune=autotune)
     return StreamingEngine(forest, EngineConfig(backend=backend, lcs_impl=impl, **cfg), plan,
                            components_impl=components_impl, window=window, device=dev)
 
@@ -2735,6 +2788,298 @@ def phase_sharded_subtraj(torch, dev, sub_res, n=SUB_N, shards=SHARDS):
 
 
 # ---------------------------------------------------------------------------
+# tuning, autotune=True, the GeoLife world, SSH corpus dedup, the examples
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _tuning_table_at(path):
+    """Point the port's tuning table at ``path`` (a scratch file, never the
+    repo's) for the duration of the block."""
+    import os
+
+    old = os.environ.get("REPRO_TORCH_TUNING_PATH")
+    os.environ["REPRO_TORCH_TUNING_PATH"] = str(path)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_TORCH_TUNING_PATH")
+        else:
+            os.environ["REPRO_TORCH_TUNING_PATH"] = old
+
+
+def phase_tune(torch, dev, scratch):
+    """The sweep (``repro_torch.perf.tune``) on the card: its smoke grid
+    plus one shared-route cell, into a scratch table; every candidate
+    bit-identical, the table's header the card's, a CPU table empty here."""
+    import json as _json
+
+    from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B
+    from repro_torch.core.similarity import repad
+    from repro_torch.kernels.lcs import kernel, ops
+    from repro_torch.perf import LCSTuning, TuningTable, tune
+
+    path = scratch / "TUNING_torch.json"
+    grid = tune.SMOKE_GRID + (TUNE_SHARED_CELL,)
+    (path_out, cells), counts = _counted(
+        lambda: tune.tune(grid=grid, device=dev, out_path=path, repeats=5))
+    routes = dict(kernel.lcs_kernel.launches_by_route)
+    expect_launched(counts, ["lcs_kernel"])
+    check(routes["registers"] > 0 and routes["shared"] > 0,
+          f"tune: the LCS kernel launched on routes {routes}")
+    kinds, sweep = {}, []
+    for c in cells:
+        # tune held its untuned reference against lcs_plain and every
+        # candidate against that reference; hold the winner's launch
+        # against the plain version here too, at the cell's own operands
+        codes, lengths, left, right, _ = tune.make_inputs(c.P, c.H, c.L, device=dev)
+        a = repad(codes[left], lengths[left], PAD_CODE_A).reshape(c.P * c.H, c.L)
+        b = repad(codes[right], lengths[right], PAD_CODE_B).reshape(c.P * c.H, c.L)
+        dt = torch.int8 if c.winner.wavefront_dtype == "int8" else torch.int32
+        got = ops.lcs(a, b, block_b=c.winner.block_b, wavefront_dtype=dt)
+        check(torch.equal(got, kernel.lcs_plain(a, b)),
+              f"tune: the winner at P={c.P} H={c.H} L={c.L} != lcs_plain")
+        for t in c.trials:  # tune raises on a candidate that is not bit-identical
+            log(f"tune: P={c.P} H={c.H} L={c.L} block_b={t.block_b} dtype={t.wavefront_dtype} "
+                f"launched block={t.block} {t.ms:.4f} ms bit-identical")
+        log(f"tune: P={c.P} H={c.H} L={c.L} winner block_b={c.winner.block_b} "
+            f"dtype={c.winner.wavefront_dtype} {c.winner.pairs_per_sec:.0f} pairs/s; "
+            f"the winner's launch == lcs_plain on the cell's {c.P * c.H} rows")
+        kinds[(c.P, c.L)] = sorted({t.block_b for t in c.trials})
+        sweep.append(dict(P=c.P, H=c.H, L=c.L, route=kernel.route(c.L),
+                          winner=[c.winner.block_b, c.winner.wavefront_dtype],
+                          trials=[[t.block_b, t.wavefront_dtype, t.block, t.ms]
+                                  for t in c.trials]))
+    card = torch.cuda.get_device_name(dev)
+    raw = _json.loads(path_out.read_text())
+    check(raw["device_kind"] == card and raw["torch_version"] == torch.__version__,
+          f"tune: table header {raw['device_kind']!r} {raw['torch_version']!r}")
+    table = TuningTable.load(path_out, device=dev)
+    check(len(table.entries) == len(grid) and all(
+        table.lookup(c.P, c.H, c.L) == c.winner for c in cells), "tune: table does not load back")
+    cpu = TuningTable(device="cpu")
+    cpu.record(1024, 3, 16, LCSTuning(128, "int32"))
+    cpu_path = cpu.save(scratch / "cpu.json")
+    check(TuningTable.load(cpu_path, device=dev).entries == {},
+          "tune: a CPU-headed table loaded on the card")
+    log(f"tune: {len(cells)} cells, block caps swept {kinds}, table header {card!r} loads back, "
+        f"a CPU table loads empty; lcs_kernel launches_by_route {routes}")
+    log(json.dumps({"tune": sweep}))
+    return counts
+
+
+def _nonzero(counts):
+    return {name: c for name, c in counts.items() if c}
+
+
+def _tuned_equals_untuned(make_engine, batch, what):
+    """``make_engine(autotune)`` builds an engine; its tuned run (counted)
+    must equal its untuned run.  Returns (tuned result, tuned engine, the
+    tuned run's launch counts)."""
+    want = make_engine(False).run(batch)
+    engine = make_engine(True)
+    got, counts = _run_counted(engine, batch)
+    _same_result(got, want, what)
+    return got, engine, counts
+
+
+def phase_autotune(torch, dev, scratch, n=AUTOTUNE_N, n_updates=4, slice_pairs=1 << 20):
+    """``autotune=True`` on every engine path, on the GeoLife world, against
+    the untuned run, with a table holding a record for the one-shot run's
+    exact (P, H, L): one shard ("kernel" and "fused"), four shards of the
+    card (replicate and shuffle), a host-join and a device-join stream.
+    Scored buffers slot for slot, similar pairs and communities equal; a
+    slice of the one-shard and the replicate "kernel" buffers re-scored by
+    the plain version."""
+    from repro_torch.api import AnotherMeEngine, EngineConfig, ExecutionPlan
+    from repro_torch.data import geolife_surrogate
+    from repro_torch.kernels.lcs import kernel
+    from repro_torch.perf import LCSTuning, TuningTable
+
+    batch, forest = geolife_surrogate(num_users=GEOLIFE_USERS, num_traj=n, seed=0, device=dev)
+    H, L = forest.num_levels, int(batch.places.shape[1])
+    cfg = dict(rho=GEOLIFE_RHO, community_mode="components")
+    probe = _engine(dev, forest, "kernel", **cfg).run(batch)
+    P = probe.stats["pair_capacity"]
+    # a record unlike the defaults (block cap 128, int32 diagonals); on the
+    # card neither changes what runs at this width
+    record = LCSTuning(block_b=128, wavefront_dtype="int32")
+    table = TuningTable(device=dev)
+    table.record(P, H, L, record)
+    path = table.save(scratch / "TUNING_autotune.json")
+    counts = collections.Counter()
+    with _tuning_table_at(path):
+        for impl in ("kernel", "fused"):
+            def one_shot(autotune, impl=impl):
+                return AnotherMeEngine(forest, EngineConfig(lcs_impl=impl, **cfg),
+                                       ExecutionPlan(autotune=autotune), device=dev)
+
+            res, eng, c = _tuned_equals_untuned(one_shot, batch, f"autotune one-shot {impl}")
+            routes = dict(kernel.lcs_kernel.launches_by_route)
+            counts.update(c)
+            if impl == "kernel":  # #2 at L = 16 (register route) against the plain version
+                _rescore_slice(torch, eng, batch, res, slice_pairs,
+                               f"autotune one-shot kernel N={n}", rho=GEOLIFE_RHO)
+            got = eng.planner.plan_tuning(P, H, L, device=dev)
+            check(got == record, f"autotune: plan_tuning({P}, {H}, {L}) = {got}, not the record")
+            log(f"autotune: one-shot {impl} N={n} P={P} H={H} L={L}: tuned == untuned "
+                f"({res.stats['num_candidates']} candidates, {len(res.similar_pairs)} similar), "
+                f"plan_tuning -> {got}, launches {_nonzero(c)}, lcs_kernel launches_by_route "
+                f"{routes}")
+        for mode in ("replicate", "shuffle"):
+            def sharded(autotune, mode=mode):
+                return AnotherMeEngine(
+                    forest, EngineConfig(lcs_impl="kernel", **cfg),
+                    ExecutionPlan(n_shards=SHARDS, devices=(dev,) * SHARDS, score_mode=mode,
+                                  autotune=autotune), device=dev)
+
+            res, eng, c = _tuned_equals_untuned(sharded, batch, f"autotune {SHARDS} shards {mode}")
+            counts.update(c)
+            if mode == "replicate":  # each shard's #2 launches against the plain version
+                _rescore_slice(torch, eng, batch, res, slice_pairs,
+                               f"autotune {SHARDS} shards {mode} N={n}", rho=GEOLIFE_RHO,
+                               pads_masked=True)
+            check(any(record in key for key in eng._runner_cache),
+                  f"autotune {mode}: the sharded runner was built without the record")
+            check(res.similar_pairs == probe.similar_pairs and res.communities == probe.communities,
+                  f"autotune {mode}: sharded result != one shard's")
+            log(f"autotune: {SHARDS} shards {mode} kernel: tuned == untuned == one shard "
+                f"({len(res.similar_pairs)} similar), launches {_nonzero(c)}")
+        for delta_join in ("host", "device"):
+            untuned, tuned = (_stream(dev, forest, "kernel", delta_join=delta_join,
+                                      rho=GEOLIFE_RHO, autotune=a) for a in (False, True))
+            for u, mb in enumerate(_micro_batches(batch, n_updates)):
+                want = untuned.update(mb)
+                got, c = _counted(lambda: tuned.update(mb))
+                counts.update(c)
+                _same_stream_result(got, want, f"autotune stream {delta_join} update {u}")
+                check(got.stats["runner_builds"] == want.stats["runner_builds"]
+                      and got.stats["score_traces"] == want.stats["score_traces"],
+                      f"autotune stream {delta_join} update {u}: build counts differ")
+            if delta_join == "device":
+                check(any(record in key for key in tuned._runner_cache),
+                      "autotune: the device-join score runner was built without the record")
+            log(f"autotune: {n_updates}-update {delta_join}-join stream of {n} rows: every "
+                f"update tuned == untuned ({len(got.similar_pairs)} similar, runner_builds "
+                f"{got.stats['runner_builds']})")
+    expect_launched(counts, ["lcs_kernel", "fused_gather_score"])
+    return dict(counts)
+
+
+def phase_geolife(torch, dev, slice_pairs=1 << 20):
+    """The GeoLife surrogate at the paper's full scale (fig11/12), "fused"
+    (#1), components; then fig11's quick grid with "ssh" and "minhash" (#5)
+    against the port's CPU run and the centralized truth."""
+    from repro_torch.core import centralized_similar_pairs, encode_batch, forest_tables
+    from repro_torch.core import maximal_cliques, qa1, qa2
+    from repro_torch.data import geolife_surrogate
+
+    t0 = time.perf_counter()
+    batch, forest = geolife_surrogate(num_users=GEOLIFE_USERS, num_traj=GEOLIFE_N, seed=0,
+                                      device=dev)
+    gen_s = time.perf_counter() - t0
+    log(f"geolife: surrogate {list(batch.places.shape)} generated in {gen_s:.3f}s (host numpy)")
+    engine = _engine(dev, forest, "fused", rho=GEOLIFE_RHO, community_mode="components")
+    tag = f"geolife N={GEOLIFE_N}"
+    res, c = _scale_run(torch, dev, engine, batch, tag, ["fused_gather_score"])
+    counts = collections.Counter(c)
+    _rescore_slice(torch, engine, batch, res, slice_pairs, tag, rho=GEOLIFE_RHO)
+    figures = dict(generate_s=gen_s, **{k: v for k, v in res.stats.items() if k.startswith("t_")},
+                   pair_capacity=res.stats["pair_capacity"],
+                   num_candidates=res.stats["num_candidates"], num_similar=len(res.similar_pairs),
+                   num_communities=len(res.communities),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del res, engine
+    torch.cuda.empty_cache()
+
+    quick, qforest = geolife_surrogate(num_users=60, num_traj=1_200, seed=0, device=dev)
+    cpu_quick, _ = geolife_surrogate(num_users=60, num_traj=1_200, seed=0, device="cpu")
+    cl, cr, _ = centralized_similar_pairs(
+        encode_batch(quick, forest_tables(qforest, device=dev)), rho=GEOLIFE_RHO)
+    cen_pairs = {(int(a), int(b)) for a, b in zip(cl.tolist(), cr.tolist())}
+    cen_comms = maximal_cliques(cen_pairs)
+    qa = {}
+    for backend in ("ssh", "minhash"):
+        res, c = _run_counted(_engine(dev, qforest, "fused", backend, rho=GEOLIFE_RHO), quick)
+        expect_launched(c, ["fused_gather_score"] + (["minhash_kernel"] if backend == "minhash"
+                                                      else []))
+        counts.update(c)
+        cpu = _engine("cpu", qforest, "fused", backend, rho=GEOLIFE_RHO).run(cpu_quick)
+        _same_result(res, cpu, f"fig11 {backend}")
+        qa[backend] = (qa1(res.communities, cen_comms), qa2(res.similar_pairs, cen_pairs))
+        if backend == "ssh":
+            check(qa[backend] == (1.0, 1.0), f"fig11: ssh QA1/QA2 {qa[backend]} != 1.000")
+        log(f"geolife: fig11 quick (60 users, 1,200) {backend}: card == CPU, QA1={qa[backend][0]:.3f} "
+            f"QA2={qa[backend][1]:.3f} ({res.stats['num_candidates']} candidates, "
+            f"{len(res.similar_pairs)} similar; centralized {len(cen_pairs)})")
+    figures["fig11_qa"] = qa
+    log(json.dumps({"geolife": figures}))
+    return dict(counts), figures
+
+
+def phase_dedup(torch, dev, n=DEDUP_N):
+    """``ssh_dedup`` over a planted-duplicate corpus with granite-3-8b's
+    vocabulary, on the card against the CPU; ``TokenDataset`` batches on
+    the card against the CPU's.  The JAX reference scores with the jnp
+    wavefront here, so no kernel runs."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenDataset, ssh_dedup, synthetic_corpus
+
+    t0 = time.perf_counter()
+    corpus, dup_source = synthetic_corpus(n, DEDUP_SEQ, GRANITE_VOCAB, seed=0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (keep, stats), counts = _counted(lambda: ssh_dedup(corpus, vocab_size=GRANITE_VOCAB,
+                                                       device=dev))
+    card_s = time.perf_counter() - t0
+    check(not any(counts.values()), f"dedup: a kernel launched on the wavefront path: {counts}")
+    t0 = time.perf_counter()
+    cpu_keep, cpu_stats = ssh_dedup(corpus, vocab_size=GRANITE_VOCAB, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(keep, cpu_keep) and stats == cpu_stats,
+          f"dedup: card {stats} != CPU {cpu_stats}")
+    planted = dup_source >= 0
+    recall = float((~keep[planted]).mean())
+    check(stats.num_dropped > 0 and recall > 0.5, f"dedup: recall {recall}")
+    log(f"dedup: {n} docs x {DEDUP_SEQ} tokens (vocab {GRANITE_VOCAB}): {stats}; card == CPU; "
+        f"planted-duplicate recall {recall:.4f}; card {card_s:.3f}s, CPU {cpu_s:.3f}s, "
+        f"corpus {gen_s:.3f}s")
+    kept = corpus[keep]
+    for step in (0, 7):
+        whole = TokenDataset(kept, global_batch=8, seed=0, device=dev).batch(step)
+        cpu = TokenDataset(kept, global_batch=8, seed=0, device="cpu").batch(step)
+        shards = [TokenDataset(kept, global_batch=8, n_shards=2, shard=s, seed=0,
+                               device=dev).batch(step) for s in (0, 1)]
+        for key in ("tokens", "labels"):
+            check(whole[key].device == dev and whole[key].dtype == torch.int32
+                  and torch.equal(whole[key].cpu(), cpu[key]), f"dedup: {key} batch != CPU")
+            check(torch.equal(torch.cat([s[key] for s in shards]), whole[key]),
+                  f"dedup: 2 shards' {key} != the whole batch")
+    log("dedup: TokenDataset batches on the card == CPU, 2 shards concatenated == 1")
+    return dict(card_s=card_s, cpu_s=cpu_s, recall=recall, stats=dataclasses.asdict(stats))
+
+
+def phase_examples(dev):
+    """Both torch examples on the card; their last lines checked."""
+    import contextlib as _ctx
+    import importlib.util
+    import io
+
+    lasts = {"torch_quickstart": "QA1 = 1.000  QA2 = 1.000  (paper: 1.000)",
+             "torch_find_another_me": "Carol found another her across the world ✓"}
+    for name, last in lasts.items():
+        spec = importlib.util.spec_from_file_location(name, HERE / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        out = io.StringIO()
+        with _ctx.redirect_stdout(out):
+            module.main(device=dev)
+        lines = out.getvalue().splitlines()
+        check(lines and lines[-1] == last, f"examples: {name} ended {lines[-1:]!r}")
+        log(f"examples: {name} on the card: {lines[-1]}")
+
+
+# ---------------------------------------------------------------------------
 # LM serving: flash attention (#6) and the SSD intra-chunk step (#7)
 # ---------------------------------------------------------------------------
 def _max_err(a, b):
@@ -3451,6 +3796,34 @@ def main() -> int:
                     "serve_sharded": serve_sharded_figures,
                     "serve_device_sharded": serve_device_sharded_figures,
                     "stream_sharded_phases_s": stream_sharded_s}))
+    # tuning and autotune=True, the GeoLife world, SSH corpus dedup and the
+    # examples: #1, #2 (both routes) and #5 on new paths
+    tuning_paths, tuning_seconds = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        tuning_seconds[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tuning_paths["tune"] = timed("tune", lambda: phase_tune(torch, dev, Path(tmp)))
+        tuning_paths["autotune"] = timed("autotune", lambda: phase_autotune(torch, dev, Path(tmp)))
+    torch.cuda.empty_cache()
+    tuning_paths["geolife"], geolife_figures = timed("geolife", lambda: phase_geolife(torch, dev))
+    torch.cuda.empty_cache()
+    dedup_figures = timed("dedup", lambda: phase_dedup(torch, dev))
+    timed("examples", lambda: phase_examples(dev))
+    torch.cuda.empty_cache()
+    for name in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
+        check(sum(c.get(name, 0) for c in tuning_paths.values()) > 0,
+              f"kernel {name} was launched on no tuning or GeoLife path")
+    for e in entries:
+        if e["name"] in ("fused_gather_score", "lcs_kernel", "minhash_kernel"):
+            e["launches_tuning_geolife"] = {path: c.get(e["name"], 0)
+                                            for path, c in tuning_paths.items()}
+    log(json.dumps({"tuning_geolife_dedup_phase_s": tuning_seconds, "geolife": geolife_figures,
+                    "dedup": dedup_figures}))
     phase_lm_kernels(torch, dev)
     phase_lm_small(torch, dev)
     zamba = phase_lm_full(torch, dev, "zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54})

@@ -12,7 +12,6 @@ from typing import Callable
 
 import numpy as np
 
-from repro_torch.api.errors import NotPortedError
 from repro_torch.core.types import CandidatePairs
 
 
@@ -23,18 +22,16 @@ class CapacityPlanner:
     slack:       multiplicative headroom over the expected pair count.
     floor_pow2:  minimum capacity is ``2**floor_pow2``.
     max_retries: doubling retries after an overflow before giving up.
-    autotune:    the JAX package's tuning-table lookup; not ported, so
-                 ``True`` raises :class:`NotPortedError`.
+    autotune:    consult the cached :mod:`repro_torch.perf` tuning table
+                 when planning score-stage kernel parameters (the LCS
+                 kernel's block cap, the wavefront dtype).  Off by default:
+                 plans do not even probe the filesystem unless asked.
     """
 
     slack: float = 1.10
     floor_pow2: int = 10
     max_retries: int = 3
     autotune: bool = False
-
-    def __post_init__(self):
-        if self.autotune:
-            raise NotPortedError("autotune=True (the LCS tuning table)")
 
     def initial_capacity(self, expected_pairs: int) -> int:
         """Power-of-two capacity covering ``expected_pairs`` with slack."""
@@ -153,9 +150,18 @@ class CapacityPlanner:
             keys_flat=keys_flat, stats=stats, floor_pow2=floor_pow2,
         )
 
-    def plan_tuning(self, pairs: int, levels: int, length: int):
+    def plan_tuning(self, pairs: int, levels: int, length: int, *, device=None):
         """Tuned LCS kernel parameters for a score stage of this shape.
 
-        The tuning table is not ported: always ``None`` (callers keep their
-        defaults)."""
-        return None
+        Returns the cached :class:`repro_torch.perf.LCSTuning` for the
+        ``(pairs, levels, length)`` cell on ``device``'s kind (``None``: the
+        card; nearest-P fallback) when ``autotune=True`` and the table has a
+        usable entry, else ``None`` — callers keep their defaults.  It
+        resolves eagerly, where a runner is built or a score call is
+        dispatched, into fixed launch arguments.
+        """
+        if not self.autotune:
+            return None
+        from repro_torch.perf import cached_table
+
+        return cached_table(device).lookup(pairs, levels, length)

@@ -26,8 +26,11 @@ Hopper MinHash kernel on the card), "brp" and "udf"; a legacy
 ``EngineConfig(subtraj_window=W, subtraj_stride=s)`` runs the subtrajectory
 mode: candidates and scores over sliding windows, folded to trajectory
 pairs by max-over-windows (see ``core/subtraj.py``), with every key-based
-backend, on one device or sharded.  Autotuning is not ported and raises
-:class:`NotPortedError`; ``delta_join`` is read by the streaming engine only.
+backend, on one device or sharded.  ``ExecutionPlan(autotune=True)`` looks
+the score stage's LCS parameters up in the tuning table of the engine's
+device kind (``repro_torch.perf``; filled by ``python -m
+repro_torch.perf.tune``); ``delta_join`` is read by the streaming engine
+only.
 """
 from __future__ import annotations
 
@@ -39,7 +42,6 @@ import torch
 
 from repro_torch.api.backends import BackendContext, CandidateBackend, get_backend
 from repro_torch.api.capacity import CapacityPlanner
-from repro_torch.api.errors import NotPortedError
 from repro_torch.api.instrumentation import Instrumentation
 from repro_torch.api.sharded import gather_similar_pairs, make_sharded_pipeline, pad_to_shards
 from repro_torch.api.stages import (
@@ -85,7 +87,8 @@ class ExecutionPlan:
     devices; a device may be listed more than once, so
     ``devices=("cuda:0",) * 4`` runs four shards on one card), padding the
     batch to a multiple of n_shards with empty trajectories.
-    ``autotune=True`` raises :class:`NotPortedError` in the engine.
+    ``autotune=True`` consults the tuning table (``repro_torch.perf``) for
+    the score stage's LCS parameters; results never change with it.
     ``delta_join`` is read by the streaming engine only.
     """
 
@@ -97,7 +100,8 @@ class ExecutionPlan:
     lcs_impl: str | None = None     # override EngineConfig.lcs_impl
     delta_join: str = "host"        # streaming only: "host" (BucketIndex)
     #                                 or "device" (the resident slabs)
-    autotune: bool = False
+    autotune: bool = False          # consult the repro_torch.perf tuning
+    #                                 table for the LCS block cap and dtype
     overlap_chunks: int = 1         # shuffle mode: split the pair buffer
     #                                 into this many chunks (a power of two),
     #                                 chunk i+1's owner hops issued before
@@ -133,8 +137,6 @@ class AnotherMeEngine:
         validate_lcs_impl(config.lcs_impl)
         if plan.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {plan.n_shards}")
-        if plan.autotune:
-            raise NotPortedError("ExecutionPlan(autotune=True)")
         self.device = resolve_device(device)
         self.forest = forest
         self.config = config
@@ -175,6 +177,7 @@ class AnotherMeEngine:
         )
         self.planner = CapacityPlanner(
             slack=config.capacity_slack, max_retries=config.max_retries,
+            autotune=plan.autotune,
         )
         if plan.n_shards == 1:
             self._stages = (
@@ -246,12 +249,16 @@ class AnotherMeEngine:
     def _sharded_runner(self, dplan, key_fn, shapes, subtraj=None):
         from repro_torch.core.similarity import wavefront_dtype_from_env
 
-        # the tuning table is not ported: always None (untuned defaults)
+        # tuning resolves here, at runner-build time, into fixed launch
+        # arguments; a miss (autotune off, no table, no matching cell) is
+        # None = untuned defaults
         tuning = self.planner.plan_tuning(
             dplan.pruned_cap or dplan.scored_cap, self.forest.num_levels, shapes[1][1],
+            device=self.device,
         )
         # the runner build resolves REPRO_LCS_DTYPE (lcs_impl_fn), so the
-        # cache keys on the resolved dtype, as the JAX engine's does
+        # cache keys on the resolved dtype and the tuning record, as the JAX
+        # engine's does
         cache_key = (
             dplan, self.plan.score_mode, self.config.lcs_impl,
             self.config.score_prune, key_fn is None, shapes,

@@ -50,7 +50,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.api.errors import NotPortedError
 from repro_torch.core.device import to_numpy
 from repro_torch.core.device_index import merge_insert, probe_pairs
 from repro_torch.core.encoding import encode_codes
@@ -534,14 +533,13 @@ def make_sharded_pipeline(
     trajectory units), the owner hops move whole [H, L] rows, and scoring
     windows them (#3 for the fused family, a width-W gather otherwise).
 
-    ``tuning`` is the JAX package's LCS tuning record; the tuning table is
-    not ported, so it must be None.
+    ``tuning`` (an optional :class:`repro_torch.perf.LCSTuning`) resolves
+    eagerly, at build time, into the non-fused impl's fixed launch
+    arguments (``lcs_impl_fn``); the fused family ignores it.
     """
     from repro_torch.api.stages import FUSED_MODES, lcs_impl_fn
     from repro_torch.core import compat
 
-    if tuning is not None:
-        raise NotPortedError("make_sharded_pipeline(tuning=...) (the LCS tuning table)")
     if score_mode not in SCORE_MODES:
         raise ValueError(f"unknown score_mode {score_mode!r}; valid: {list(SCORE_MODES)}")
     n_shards = plan.n_shards
@@ -551,7 +549,7 @@ def make_sharded_pipeline(
     else:
         W, stride, nw = 0, 1, 1
     fused_mode = FUSED_MODES.get(lcs_impl)
-    impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl)
+    impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl, tuning)
     out_cap = (plan.pruned_cap or plan.scored_cap) if score_prune \
         else plan.scored_cap
     n_chunks = plan.n_chunks if score_mode == "shuffle" else 1
@@ -1111,20 +1109,18 @@ def make_streaming_score_pipeline(
     ``prune_tau`` to PAD (in shuffle mode BEFORE the hops, from an
     all_gather of the lengths only, so pruned pairs never travel); pruned
     slots read mss -1.0 and their count returns as ``pruned``.
-    ``tuning`` is the JAX package's LCS tuning record; the table is not
-    ported, so it must be None.
+    ``tuning`` (an optional :class:`repro_torch.perf.LCSTuning`) resolves
+    eagerly, at build time, as in :func:`make_sharded_pipeline`.
     """
     from repro_torch.api.stages import FUSED_MODES, lcs_impl_fn
     from repro_torch.core import compat
 
-    if tuning is not None:
-        raise NotPortedError("make_streaming_score_pipeline(tuning=...) (the LCS tuning table)")
     if score_mode not in SCORE_MODES:
         raise ValueError(f"unknown score_mode {score_mode!r}; valid: {list(SCORE_MODES)}")
     n_shards = plan.n_shards
     _check_mesh(mesh, n_shards, axis_name)
     fused_mode = FUSED_MODES.get(lcs_impl)
-    impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl)
+    impl = None if fused_mode is not None else lcs_impl_fn(lcs_impl, tuning)
     out_cap = plan.out_cap
     n_chunks = plan.n_chunks if score_mode == "shuffle" else 1
     if n_chunks > 1:

@@ -49,7 +49,7 @@ from repro_torch.core.device import to_numpy as _np
 from repro_torch.core.encoding import PAD_CODE_A, PAD_CODE_B, SemanticForest, encode_batch
 from repro_torch.core.similarity import (
     PRUNE_EPS, lcs_ref, lcs_wavefront, mss_scores, mss_upper_bound, repad,
-    score_pairs, score_windowed_pairs, wavefront_dtype_from_env,
+    score_pairs, score_windowed_pairs,
 )
 from repro_torch.core.subtraj import (
     aggregate_window_pairs, num_windows, window_coords, window_lengths,
@@ -60,6 +60,7 @@ from repro_torch.core.types import (
 )
 from repro_torch.kernels.lcs import ops as lcs_ops
 from repro_torch.kernels.lcs.fused import FUSED_IMPL_MODES
+from repro_torch.perf.tuning import resolve_wavefront_dtype
 
 LCS_IMPLS = (
     "wavefront", "ref", "kernel", "pallas", "pallas-interpret",
@@ -81,12 +82,16 @@ def validate_lcs_impl(name: str) -> str:
     return name
 
 
-def lcs_impl_fn(name: str):
+def lcs_impl_fn(name: str, tuning=None):
     """Batched LCS ``(a [B,L], b [B,L]) -> [B]`` for an impl name.
 
     The fused family takes the code table plus pair indices rather than
     gathered operands, so it has no pairwise form — callers route it through
     ``kernels/lcs/fused.fused_score`` (see FUSED_MODES) instead.
+
+    ``tuning`` is an optional :class:`repro_torch.perf.LCSTuning` record
+    (from ``CapacityPlanner.plan_tuning``), resolved HERE into fixed launch
+    arguments: the ``block_b`` cap and the wavefront dtype.
     """
     validate_lcs_impl(name)
     if name in FUSED_MODES:
@@ -95,10 +100,11 @@ def lcs_impl_fn(name: str):
             "pairwise (a, b) form — dispatch through "
             "repro_torch.kernels.lcs.fused.fused_score"
         )
-    dt = wavefront_dtype_from_env()
+    dt = resolve_wavefront_dtype(tuning)  # env pin > tuned > default
     if name in _KERNEL_MODES:
         mode = _KERNEL_MODES[name]
-        return lambda a, b: lcs_ops.lcs(a, b, mode=mode, wavefront_dtype=dt)
+        kwargs = {} if tuning is None else {"block_b": tuning.block_b}
+        return lambda a, b: lcs_ops.lcs(a, b, mode=mode, wavefront_dtype=dt, **kwargs)
     if name == "ref":
         return lcs_ref
     return lambda a, b: lcs_wavefront(a, b, dtype=dt)
@@ -220,19 +226,28 @@ class ScoreStage:
                 post_prune_capacity=int(cand.left.shape[0]),
             )
         with ctx.instr.phase("score"):
+            # the tuning record resolves here, eagerly, into fixed launch
+            # arguments; None keeps the untuned defaults.  The fused family
+            # takes no record.
+            tuning = None
+            if impl not in FUSED_MODES:
+                tuning = ctx.planner.plan_tuning(
+                    int(cand.left.shape[0]), int(ctx.encoded.codes.shape[1]), L,
+                    device=ctx.batch.device,
+                )
             if subtraj is not None:
                 level_lcs, mss = _score_windowed(
-                    ctx.encoded, cand, ctx.betas, impl, subtraj
+                    ctx.encoded, cand, ctx.betas, impl, subtraj, tuning
                 )
             elif impl in _KERNEL_MODES:
                 level_lcs, mss = _score_with_kernel(
-                    ctx.encoded, cand, ctx.betas, mode=_KERNEL_MODES[impl]
+                    ctx.encoded, cand, ctx.betas, mode=_KERNEL_MODES[impl], tuning=tuning,
                 )
             else:
                 level_lcs, mss = score_pairs(
                     ctx.encoded.codes, ctx.encoded.lengths,
                     cand.left, cand.right, ctx.betas, impl_name=impl,
-                    wavefront_dtype=wavefront_dtype_from_env(),
+                    wavefront_dtype=resolve_wavefront_dtype(tuning),
                 )
             synchronize(mss)
 
@@ -361,24 +376,24 @@ def _subtraj_of(cfg, max_len: int):
     )
 
 
-def _score_windowed(encoded, cand, betas, impl, subtraj):
+def _score_windowed(encoded, cand, betas, impl, subtraj, tuning=None):
     """Windowed dispatch: pair ids are window ids; every impl family scores
     the windowed [H, W] slices (the fused family masks in its kernel, the
     kernel family slices via ``lcs_windowed``, the plain impls gather
     windows)."""
     if impl in _KERNEL_MODES:
         return _score_windowed_with_kernel(
-            encoded, cand, betas, subtraj=subtraj, mode=_KERNEL_MODES[impl]
+            encoded, cand, betas, subtraj=subtraj, mode=_KERNEL_MODES[impl], tuning=tuning,
         )
     W, stride, nw = subtraj
     return score_windowed_pairs(
         encoded.codes, encoded.lengths, cand.left, cand.right, betas,
         nw=nw, window=W, stride=stride, impl_name=impl,
-        wavefront_dtype=wavefront_dtype_from_env(),
+        wavefront_dtype=resolve_wavefront_dtype(tuning),
     )
 
 
-def _score_windowed_with_kernel(encoded, cand, betas, *, subtraj, mode="auto"):
+def _score_windowed_with_kernel(encoded, cand, betas, *, subtraj, mode="auto", tuning=None):
     """Windowed twin of :func:`_score_with_kernel`: decode (traj, offset)
     from the window ids and run the batched LCS kernel over the sliced
     ``[P*H, W]`` windows (``kernels/lcs/ops.lcs_windowed``)."""
@@ -388,26 +403,30 @@ def _score_windowed_with_kernel(encoded, cand, betas, *, subtraj, mode="auto"):
     P = ta.shape[0]
     H, L = encoded.codes.shape[1], encoded.codes.shape[2]
     rep = lambda x: torch.repeat_interleave(x, H)  # noqa: E731
+    kwargs = {} if tuning is None else {"block_b": tuning.block_b}
     level_lcs = lcs_ops.lcs_windowed(
         encoded.codes[ta].reshape(P * H, L),
         encoded.codes[tb].reshape(P * H, L),
         rep(oa), rep(ob),
         rep(encoded.lengths[ta]), rep(encoded.lengths[tb]),
-        window=W, mode=mode, wavefront_dtype=wavefront_dtype_from_env(),
+        window=W, mode=mode, wavefront_dtype=resolve_wavefront_dtype(tuning), **kwargs,
     ).reshape(P, H)
     return level_lcs, mss_scores(level_lcs, betas)
 
 
-def _score_with_kernel(encoded, cand, betas, *, mode="auto"):
+def _score_with_kernel(encoded, cand, betas, *, mode="auto", tuning=None):
     """Score candidates with the batched LCS kernel (kernels/lcs/ops.py)
-    over two gathered, repadded ``[P*H, L]`` operand copies."""
+    over two gathered, repadded ``[P*H, L]`` operand copies.  ``tuning``
+    (an optional LCSTuning) supplies the ``block_b`` cap and the wavefront
+    dtype; None keeps the defaults."""
     li = torch.where(cand.left == PAD_ID, 0, cand.left)
     ri = torch.where(cand.right == PAD_ID, 0, cand.right)
     P = li.shape[0]
     H, L = encoded.codes.shape[1], encoded.codes.shape[2]
     a = repad(encoded.codes[li], encoded.lengths[li], PAD_CODE_A).reshape(P * H, L)
     b = repad(encoded.codes[ri], encoded.lengths[ri], PAD_CODE_B).reshape(P * H, L)
+    kwargs = {} if tuning is None else {"block_b": tuning.block_b}
     level_lcs = lcs_ops.lcs(
-        a, b, mode=mode, wavefront_dtype=wavefront_dtype_from_env()
+        a, b, mode=mode, wavefront_dtype=resolve_wavefront_dtype(tuning), **kwargs
     ).reshape(P, H)
     return level_lcs, mss_scores(level_lcs, betas)

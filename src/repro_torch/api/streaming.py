@@ -91,6 +91,7 @@ from repro_torch.core.types import (
     PAD_ID, PAD_KEY, PAD_PLACE, CandidatePairs, EncodedBatch, ScoredPairs,
     TrajectoryBatch,
 )
+from repro_torch.perf.tuning import resolve_wavefront_dtype
 
 COMPONENTS_IMPLS = ("unionfind", "jit")
 DELTA_JOINS = ("host", "device")
@@ -795,9 +796,12 @@ class StreamingEngine:
     def _score_delta_single(self, lo, hi):
         """Score the delta pairs against the resident table.  The table is
         local-indexed, so the device gets LOCAL ids (g - base); the
-        returned ids stay global."""
+        returned ids stay global.  The tuning record is looked up at the
+        padded pair buffer the JAX engine ships (``update_capacity``)."""
         impl = self.config.lcs_impl
         k = int(lo.shape[0])
+        tuning = self.planner.plan_tuning(self.planner.update_capacity(k), self._H, self.L,
+                                          device=self.device)
         jl = torch.tensor(lo - self._base, dtype=torch.int32, device=self.device)
         jr = torch.tensor(hi - self._base, dtype=torch.int32, device=self.device)
         self._xfer["pair_rows"] += k
@@ -810,11 +814,11 @@ class StreamingEngine:
                 overflow=torch.tensor(0, dtype=torch.int32, device=self.device),
             )
             lvl, mss = _score_with_kernel(enc, cand, self.betas,
-                                          mode=_KERNEL_MODES[impl])
+                                          mode=_KERNEL_MODES[impl], tuning=tuning)
         else:
             lvl, mss = score_pairs(
                 self._codes_dev, self._len_dev, jl, jr, self.betas,
-                impl_name=impl, wavefront_dtype=wavefront_dtype_from_env(),
+                impl_name=impl, wavefront_dtype=resolve_wavefront_dtype(tuning),
             )
         return (lo.astype(np.int32), hi.astype(np.int32), to_numpy(lvl),
                 to_numpy(mss))
@@ -1060,17 +1064,19 @@ class StreamingEngine:
 
     def _score_runner(self, splan, *, score_prune: bool):
         """One score program per (plan, mode, impl, wavefront dtype, world
-        shape, prune), shared by the host-pair and device-pair paths, as the
-        JAX engine caches its compiled runners."""
+        shape, prune, tuning record), shared by the host-pair and
+        device-pair paths, as the JAX engine caches its compiled runners.
+        The record resolves here, at build time (a miss is None)."""
+        tuning = self.planner.plan_tuning(splan.pair_cap, self._H, self.L, device=self.device)
         key = (splan, self.plan.score_mode, self.config.lcs_impl,
-               wavefront_dtype_from_env(), self.L, self._H, score_prune)
+               wavefront_dtype_from_env(), self.L, self._H, score_prune, tuning)
         runner = self._runner_cache.get(key)
         if runner is None:
             runner = make_streaming_score_pipeline(
                 self._eng.mesh(), splan, betas=self.betas, axis_name=self.plan.axis_name,
                 score_mode=self.plan.score_mode, lcs_impl=self.config.lcs_impl,
                 trace_counter=self.score_traces, score_prune=score_prune,
-                prune_tau=self.config.rho,
+                prune_tau=self.config.rho, tuning=tuning,
             )
             self._runner_cache[key] = runner
             self.runner_builds += 1

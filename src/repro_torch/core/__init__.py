@@ -7,10 +7,12 @@ from repro_torch.core.types import (
     TrajectoryBatch,
 )
 from repro_torch.core.encoding import (
-    SemanticForest, encode_batch, encode_codes, encode_types, forest_tables,
+    SemanticForest, encode_batch, encode_codes, encode_places, encode_types, forest_tables,
     make_random_forest, type_codes,
 )
-from repro_torch.core.shingling import num_shingles, shingle_indices, shingles_from_types
+from repro_torch.core.shingling import (
+    expected_collision_rate, num_shingles, shingle_indices, shingles_from_types,
+)
 from repro_torch.core.similarity import (
     default_betas, lcs_ref, lcs_wavefront, mss_scores, multi_level_lcs,
     score_pairs,

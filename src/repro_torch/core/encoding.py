@@ -14,11 +14,12 @@ tensor.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, to_numpy
 from repro_torch.core.types import PAD_PLACE, EncodedBatch, TrajectoryBatch
 
 # Padding sentinels for encoded codes.  Two *different* negative values for
@@ -140,3 +141,13 @@ def type_codes(encoded: EncodedBatch) -> torch.Tensor:
     """The coarsest-level view used by SSH: int32 [N, L]."""
     return encoded.codes[:, 0, :]
 
+
+def encode_places(place_ids: Sequence[int], tables) -> list[str]:
+    """Human-readable dotted encodings ("E_type.E_class.E_name") for demos;
+    ``tables`` is the [n_levels, num_places] forest table, a tensor on any
+    device or an array."""
+    out = []
+    tables = to_numpy(tables)
+    for p in place_ids:
+        out.append(".".join(str(int(tables[l, p])) for l in range(tables.shape[0])))
+    return out

@@ -51,6 +51,11 @@ def num_shingles(max_len: int, k: int) -> int:
     return shingle_indices(max_len, k).shape[0]
 
 
+def expected_collision_rate(avg_len: float, k: int, num_types: int) -> float:
+    """The paper's collision-rate model: C(L, k) / Q**k (section IV.2)."""
+    return comb(int(avg_len), k) / float(num_types) ** k
+
+
 def pack_keys(codes: torch.Tensor, num_types: int) -> torch.Tensor:
     """Base-Q pack of [..., k] type codes into one int32 key."""
     k = codes.shape[-1]

@@ -96,6 +96,7 @@ def lcs_windowed(
     len_b: torch.Tensor,
     *,
     window: int,
+    block_b: int = 512,
     mode: str = "auto",
     wavefront_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
@@ -105,8 +106,9 @@ def lcs_windowed(
     needed), off_a/off_b [B] window start offsets, len_a/len_b [B] the
     rows' TRUE lengths.  Each row is sliced to its
     ``[off, off + clip(len - off, 0, window))`` window, sentinel-repadded to
-    width ``min(window, L)``, and dispatched through :func:`lcs` — so the
-    batched kernel runs over width-W rows instead of the full rows.
+    width ``min(window, L)``, and dispatched through :func:`lcs` (with the
+    same ``block_b``/``mode``) — so the batched kernel runs over width-W
+    rows instead of the full rows.
     """
     W = min(window, a.shape[1])
 
@@ -117,5 +119,5 @@ def lcs_windowed(
     return lcs(
         slice_side(a, off_a, len_a, PAD_CODE_A),
         slice_side(b, off_b, len_b, PAD_CODE_B),
-        mode=mode, wavefront_dtype=wavefront_dtype,
+        block_b=block_b, mode=mode, wavefront_dtype=wavefront_dtype,
     )

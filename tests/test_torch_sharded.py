@@ -30,7 +30,7 @@ import torch
 
 import repro.api.sharded as jsharded
 from repro_torch.api import (
-    AnotherMeEngine, CallableBackend, EngineConfig, ExecutionPlan, NotPortedError,
+    AnotherMeEngine, CallableBackend, EngineConfig, ExecutionPlan,
     StreamingEngine,
 )
 from repro_torch.api import engine as tengine
@@ -421,9 +421,14 @@ def test_shard_map_specs_and_mesh_refusals():
 def test_sharded_refusals(world):
     batch, forest = world
     sharded = ExecutionPlan(n_shards=4, devices=(CPU,) * 4)
-    with pytest.raises(NotPortedError, match="autotune"):
-        AnotherMeEngine(forest, EngineConfig(), ExecutionPlan(n_shards=4, autotune=True),
-                        device=CPU)
+    # autotuning runs; whatever the table holds, the untuned result
+    tuned = AnotherMeEngine(forest, EngineConfig(), ExecutionPlan(n_shards=4, devices=(CPU,) * 4,
+                                                                  autotune=True), device=CPU)
+    untuned = AnotherMeEngine(forest, EngineConfig(), sharded, device=CPU)
+    got, want = tuned.run(batch), untuned.run(batch)
+    for f in SCORED_FIELDS:
+        assert torch.equal(getattr(got.scored, f), getattr(want.scored, f)), f
+    assert got.similar_pairs == want.similar_pairs and got.communities == want.communities
     # the streaming engine runs on the mesh, on both joins, and equals one shard
     stream = TrajectoryBatch(places=batch.places[:60], lengths=batch.lengths[:60],
                              user_id=batch.user_id[:60])

@@ -27,7 +27,7 @@ import repro.data as jdata
 from repro.core.types import TrajectoryBatch as JBatch
 from repro_torch.api import (
     LCS_IMPLS, AnotherMeEngine, CapacityExceeded, EngineConfig, ExecutionPlan,
-    NotPortedError, StreamingEngine,
+    StreamingEngine,
 )
 from repro_torch.api import sharded as tsharded
 from repro_torch.core import communities as tcomm
@@ -313,8 +313,10 @@ def test_refusals():
         StreamingEngine(tf, window=0, device=CPU)
     with pytest.raises(ValueError, match="micro-batch"):
         StreamingEngine(tf, device=CPU).update_many([])
-    with pytest.raises(NotPortedError, match="autotune"):
-        StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, autotune=True), device=CPU)
+    # autotuning runs; whatever the table holds, the untuned result
+    got = StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, devices=(CPU,) * 2, autotune=True),
+                          device=CPU).update(tbatch(places, lengths))
+    assert_same_result(got, one, "autotune")
     with pytest.raises(ValueError, match="first shard"):  # the world lives on shard 0
         StreamingEngine(tf, plan=ExecutionPlan(n_shards=2, devices=("meta",) * 2), device=CPU)
 
