@@ -1,19 +1,23 @@
-"""Attention blocks: GQA (Llama/Qwen/Granite style) prefill and decode.
+"""Attention blocks: GQA (Llama/Qwen/Granite style) and MLA (DeepSeek-V2 /
+MiniCPM3 style), prefill and decode.
 
-Port of ``repro/models/attention.py`` for one device.  The prefill path
-goes through ``layers.chunked_attention`` (the flash-attention kernel on the
+Port of ``repro/models/attention.py`` for one device.  The prefill paths
+go through ``layers.chunked_attention`` (the flash-attention kernel on the
 card); decode is plain tensor arithmetic over the cache, as in the
-reference.  MLA (``attn="mla"``) is not ported and raises.
+reference.  MLA materialises ``q_full``, ``k_full`` (the shared rope key
+broadcast to every head) and v zero-padded to the q/k head dim, as the
+reference does, so the kernel sees one head dim ``dn + dr``; its decode
+scores the cached latent directly (matrix absorption, in float32).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.api.errors import NotPortedError
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import chunked_attention, rope
+from repro_torch.models.layers import chunked_attention, rmsnorm, rope
 
 
 def _qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig):
@@ -56,9 +60,49 @@ def gqa_attention(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.T
     return (out, k, v) if return_kv else out
 
 
+def _mla_q(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """MLA queries, through the low-rank ``wq_a``/``q_norm``/``wq_b``
+    bottleneck when the config has one, else ``wq``: [..., H * (dn + dr)]."""
+    if cfg.q_lora_rank:
+        cq = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+        return cq @ p["wq_b"].to(x.dtype)
+    return x @ p["wq"].to(x.dtype)
+
+
+def mla_attention(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor,
+                  *, return_kv: bool = False):
+    """Multi-head Latent Attention (DeepSeek-V2 eq. 1-11): x [B,S,d] ->
+    [B,S,d], and with ``return_kv`` also the cache's entries, the normed
+    latent ``c_kv`` [B,S,kv_lora_rank] and the rotated shared key
+    ``k_rope`` [B,S,dr] (the reference's ``serve_step._mla_with_kv``)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+
+    q = _mla_q(x, p, cfg).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    # compressed KV latent + shared rope key
+    ckv = x @ p["wkv_a"].to(x.dtype)
+    c_kv = rmsnorm(ckv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(ckv[..., r:][:, :, None, :], positions, cfg.rope_theta)  # [B,S,1,dr]
+    k_nope = (c_kv @ p["wk_b"].to(x.dtype)).reshape(B, S, H, dn)
+    v = (c_kv @ p["wv_b"].to(x.dtype)).reshape(B, S, H, dv)
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    # v padded up to the q/k head dim so that the kernel sees one D
+    v_pad = F.pad(v, (0, dn + dr - dv)) if dv < dn + dr else v
+    out = chunked_attention(q_full, k_full, v_pad, causal=cfg.causal)[..., :dv]
+    out = out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
+    return (out, c_kv, k_rope[:, :, 0]) if return_kv else out
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, positions: torch.Tensor):
     if cfg.attn == "mla":
-        raise NotPortedError("MLA attention (attn='mla')")
+        return mla_attention(x, p, cfg, positions)
     return gqa_attention(x, p, cfg, positions)
 
 
@@ -91,3 +135,44 @@ def gqa_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, k_cache: torch.Tensor
     o = torch.einsum("bhrs,bshd->bhrd", w, v_cache.float())
     o = o.reshape(B, 1, H * D).to(x.dtype)
     return o @ p["wo"].to(x.dtype), k_cache, v_cache
+
+
+def mla_decode(x: torch.Tensor, p: dict, cfg: ModelConfig, ckv_cache: torch.Tensor,
+               krope_cache: torch.Tensor, pos: torch.Tensor):
+    """MLA decode with matrix absorption (DeepSeek-V2 appendix): the scores
+    are taken against the cached latent directly, ``W_uk`` absorbed into
+    the query and ``W_uv`` into the output, in float32.  x [B,1,d];
+    ckv_cache [B,Smax,kv_lora_rank]; krope_cache [B,Smax,dr]; pos a 0-d
+    integer tensor.  Returns (out [B,1,d], ckv_cache, krope_cache), the new
+    token's entries written into the caches in place (as ``gqa_decode``)."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    posv = pos.reshape(1, 1).expand(B, 1)
+    xt = x[:, 0]
+
+    q = _mla_q(xt, p, cfg).reshape(B, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope[:, None], posv, cfg.rope_theta)[:, 0]
+
+    ckv = xt @ p["wkv_a"].to(x.dtype)
+    c_new = rmsnorm(ckv[..., :r], p["kv_norm"], cfg.norm_eps)
+    kr_new = rope(ckv[..., r:][:, None, None, :], posv, cfg.rope_theta)[:, :, 0]  # [B,1,dr]
+    at = pos.reshape(1).long()
+    ckv_cache.index_copy_(1, at, c_new[:, None, :])
+    krope_cache.index_copy_(1, at, kr_new)
+
+    wk_b = p["wk_b"].float().reshape(r, H, dn)
+    wv_b = p["wv_b"].float().reshape(r, H, dv)
+    ckv_f = ckv_cache.float()
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope.float(), wk_b)  # W_uk absorbed into q
+    s = torch.einsum("bhr,bsr->bhs", q_c, ckv_f)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), krope_cache.float())
+    s = s / math.sqrt(dn + dr)
+    mask = torch.arange(ckv_cache.shape[1], device=x.device) <= pos
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhs,bsr->bhr", w, ckv_f)
+    o = torch.einsum("bhr,rhd->bhd", o_c, wv_b).reshape(B, 1, H * dv)
+    return o.to(x.dtype) @ p["wo"].to(x.dtype), ckv_cache, krope_cache

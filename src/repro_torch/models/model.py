@@ -9,10 +9,10 @@ Python loop over the stacked slices.
 
 Every leaf is declared once as a ``PS(shape, init, scale)`` spec (the
 reference's sharding axes have no counterpart here).  The spec tree is data
-for every registered architecture, so :func:`param_count` and
-:func:`param_shape_structs` cover all ten; the forward pass runs the dense,
-ssm and hybrid families and raises ``NotPortedError`` for MoE layers, MLA
-attention and the audio/vision frontends.
+for every registered architecture, and the forward pass runs all ten: the
+dense, MoE, ssm and hybrid families, GQA and MLA attention, and the audio
+(precomputed frame features in place of the embedding) and vision (patch
+embeddings prepended to the embedded tokens) frontends.
 
 Vocab padding: the embedding and lm_head vocab dims are padded to a
 multiple of 512 (for vocabularies of 8,192 and more), and padded logits
@@ -26,12 +26,12 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.api.errors import NotPortedError
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
 from repro_torch.models.mamba import mamba_block
+from repro_torch.models.moe import moe_block
 
 VOCAB_PAD = 512
 
@@ -53,17 +53,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     if cfg.vocab_size < 8192:
         return cfg.vocab_size  # tiny head (hubert): no padding
     return -(-cfg.vocab_size // VOCAB_PAD) * VOCAB_PAD
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotPortedError`` for what the port's forward and serving
-    paths do not run: MoE layers, MLA attention, modality frontends."""
-    if cfg.family == "moe":
-        raise NotPortedError("MoE layers (models/moe.py)")
-    if cfg.attn == "mla":
-        raise NotPortedError("MLA attention (attn='mla')")
-    if cfg.frontend != "none":
-        raise NotPortedError(f"the {cfg.frontend} frontend")
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +210,16 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for _, s in _leaves(build_param_specs(cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active parameters (MoE: top-k + shared experts only)."""
+    total = param_count(cfg)
+    if not cfg.num_experts:
+        return total
+    E, k = cfg.num_experts, cfg.experts_per_token
+    expert_p = 3 * cfg.d_model * cfg.moe_d_ff * cfg.num_layers
+    return total - (E - k) * expert_p  # routed experts not hit
+
+
 def init_params(cfg: ModelConfig, generator, device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random parameters with the reference's recipes: normal draws times
     each spec's scale (embedding 1.0, ``wo``/``w_down``/``w_out``
@@ -274,16 +273,21 @@ def layer_params(blocks: dict, i: int) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 def ffn_block(x, p, cfg: ModelConfig):
-    """The post-attention half of a dense layer or of the hybrid's shared
-    block: ``x + swiglu(rmsnorm(x, ln2))`` (the reference's ``_ffn_decode``
-    for a dense config; its MoE branch is not ported)."""
-    return x + L.swiglu_mlp(L.rmsnorm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+    """The post-attention half of a layer (the reference's
+    ``_ffn_decode``): ``x + ffn(rmsnorm(x, ln2))``, the FFN a SwiGLU MLP
+    or, in an MoE layer, :func:`moe_block`.  Returns (x, the layer's aux
+    loss, or None for an MLP)."""
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        mo, aux = moe_block(h, p["moe"], cfg)
+        return x + mo, aux
+    return x + L.swiglu_mlp(h, p["mlp"]), None
 
 
 def apply_shared_block(x, sp, cfg: ModelConfig, positions):
     """The hybrid's parameter-shared attention+MLP block."""
     h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    return ffn_block(x + attention_block(h, sp["attn"], cfg, positions), sp, cfg)
+    return ffn_block(x + attention_block(h, sp["attn"], cfg, positions), sp, cfg)[0]
 
 
 def shared_after(cfg: ModelConfig, i: int) -> bool:
@@ -301,14 +305,30 @@ def lm_logits(x, params, cfg: ModelConfig):
     return logits
 
 
+def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The first layer's input [B, S, d] in ``layers.COMPUTE_DTYPE``: the
+    embedded ``inputs["tokens"]``; for the audio frontend the frame
+    features ``inputs["features"]`` [B, S, d] (no embedding); for the vision
+    frontend the patch embeddings ``inputs["vis_embed"]`` [B, vis_tokens, d]
+    followed by the embedded tokens."""
+    if cfg.frontend == "audio":
+        return inputs["features"].to(L.COMPUTE_DTYPE)
+    x = params["embed"].to(L.COMPUTE_DTYPE)[inputs["tokens"]]
+    if cfg.frontend == "vision":
+        x = torch.cat([inputs["vis_embed"].to(L.COMPUTE_DTYPE), x], dim=1)
+    return x
+
+
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, last_only: bool = False):
-    """-> (logits [B, S, V_pad] float32, aux loss 0).  ``inputs["tokens"]``
-    [B, S]; ``last_only`` computes the final position's logits only (the
+    """-> (logits [B, S, V_pad] float32, aux loss float32: the MoE layers'
+    load-balance losses summed, 0 without MoE).  ``inputs`` as
+    :func:`embed_inputs` reads them (``launch/inputs.py::make_inputs``
+    makes them); positions run over the whole sequence, patches included.
+    ``last_only`` computes the final position's logits only (the
     serving-prefill shape).  Activations run in ``layers.COMPUTE_DTYPE``."""
-    check_ported(cfg)
-    tokens = inputs["tokens"]
-    x = params["embed"].to(L.COMPUTE_DTYPE)[tokens]
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    x = embed_inputs(params, inputs, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
     for i in range(cfg.num_layers):
         lp = layer_params(params["blocks"], i)
@@ -318,7 +338,9 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, last_only: bool = F
             if shared_after(cfg, i):
                 x = apply_shared_block(x, shared, cfg, positions)
         else:
-            x = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg)
+            x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg)
+            if a is not None:
+                aux = aux + a
     if last_only:
         x = x[:, -1:, :]
-    return lm_logits(x, params, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(x, params, cfg), aux

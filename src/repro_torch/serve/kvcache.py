@@ -4,8 +4,8 @@ Port of ``repro/serve/kvcache.py`` for one device (no shardings).  Cache
 layouts per family (leading [L] = per layer, stacked):
 
   gqa    : k, v          [L, B, Smax, KH, hd]   (bf16)
-  mla    : c_kv          [L, B, Smax, kv_lora]  (shapes only: MLA is not
-           k_rope        [L, B, Smax, dr]        ported)
+  mla    : c_kv          [L, B, Smax, kv_lora]  (the normed latent)
+           k_rope        [L, B, Smax, dr]       (the rotated shared key)
   ssm    : conv_x [L,B,W-1,din], conv_bc [L,B,W-1,2GN], ssm [L,B,H,P,N] f32
   hybrid : ssm caches + shared-attn sk/sv [n_inv, B, Smax, KH, hd]
 

@@ -5,14 +5,20 @@ runs a prompt through the model and fills the cache (flash attention and the
 SSD intra-chunk kernel on the card); ``make_decode_step`` builds the step
 that takes one new token per sequence against the cache.  The reference's
 ``lax.scan`` over stacked layers (or hybrid groups) is a Python loop over
-the layers here, its ``_attn_with_kv`` is
-``models.attention.gqa_attention(..., return_kv=True)`` and its
-``_ffn_decode`` is ``models.model.ffn_block``.
+the layers here, its ``_attn_with_kv`` and ``_mla_with_kv`` are
+``models.attention.gqa_attention`` and ``mla_attention`` with
+``return_kv=True``, and its ``_ffn_decode`` is ``models.model.ffn_block``
+(a SwiGLU MLP, or the MoE block).  Every family runs: dense, MoE, ssm and
+hybrid, with GQA caches or MLA's latent ``c_kv``/``k_rope`` caches.
 
 The cache is updated in place: ``prefill_with_cache`` returns a new cache,
 and each decode step writes the new token's entries into the cache it is
-given and returns that dict with ``pos`` advanced.  The dense, ssm and
-hybrid families are ported; MoE and MLA raise ``NotPortedError``.
+given and returns that dict with ``pos`` advanced.  A decode step runs the
+MoE block on one token a sequence, so its capacity is
+``int(B*K/E * capacity_factor) + 1`` and colliding assignments drop, as in
+the reference (``models/moe.py``).  The serving paths take token prompts:
+a config with a modality frontend is served with ``frontend="none"``, as
+the reference's serving CLI does.
 """
 from __future__ import annotations
 
@@ -20,11 +26,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.attention import gqa_attention, gqa_decode
+from repro_torch.models.attention import gqa_attention, gqa_decode, mla_attention, mla_decode
 from repro_torch.models.mamba import mamba_decode_step, mamba_prefill
-from repro_torch.models.model import (
-    check_ported, ffn_block, layer_params, lm_logits, shared_after,
-)
+from repro_torch.models.model import ffn_block, layer_params, lm_logits, shared_after
 from repro_torch.serve.kvcache import init_cache
 
 _SSM_STATE = ("conv_x", "conv_bc", "ssm")
@@ -33,7 +37,6 @@ _SSM_STATE = ("conv_x", "conv_bc", "ssm")
 def make_decode_step(cfg: ModelConfig):
     """Returns ``decode_step(params, cache, tokens [B,1]) -> (logits
     [B,1,V_pad] float32, cache)``; the cache is updated in place."""
-    check_ported(cfg)
 
     def decode_step(params, cache, tokens):
         pos = cache["pos"]
@@ -52,10 +55,13 @@ def make_decode_step(cfg: ModelConfig):
                     g = i // cfg.shared_attn_every
                     h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
                     o, _, _ = gqa_decode(h, shared["attn"], cfg, cache["sk"][g], cache["sv"][g], pos)
-                    x = ffn_block(x + o, shared, cfg)
+                    x, _ = ffn_block(x + o, shared, cfg)
             else:
-                o, _, _ = gqa_decode(h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos)
-                x = ffn_block(x + o, lp, cfg)
+                if cfg.attn == "mla":
+                    o, _, _ = mla_decode(h, lp["attn"], cfg, cache["c_kv"][i], cache["k_rope"][i], pos)
+                else:
+                    o, _, _ = gqa_decode(h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos)
+                x, _ = ffn_block(x + o, lp, cfg)
         cache["pos"] = pos + 1
         return lm_logits(x, params, cfg), cache
 
@@ -67,7 +73,6 @@ def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: 
     (last-token logits [B,1,V_pad] float32, a cache on the tokens' device
     positioned at S) so that greedy decode continues where a plain forward
     pass would.  S may not exceed ``max_len``."""
-    check_ported(cfg)
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds the cache's max_len {max_len}")
@@ -89,11 +94,16 @@ def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: 
                 o, kf, vf = gqa_attention(h, shared["attn"], cfg, positions, return_kv=True)
                 cache["sk"][inv, :, :S].copy_(kf)
                 cache["sv"][inv, :, :S].copy_(vf)
-                x = ffn_block(x + o, shared, cfg)
+                x, _ = ffn_block(x + o, shared, cfg)
+        elif cfg.attn == "mla":
+            o, ck, kr = mla_attention(h, lp["attn"], cfg, positions, return_kv=True)
+            cache["c_kv"][i, :, :S].copy_(ck)
+            cache["k_rope"][i, :, :S].copy_(kr)
+            x, _ = ffn_block(x + o, lp, cfg)
         else:
             o, kf, vf = gqa_attention(h, lp["attn"], cfg, positions, return_kv=True)
             cache["k"][i, :, :S].copy_(kf)
             cache["v"][i, :, :S].copy_(vf)
-            x = ffn_block(x + o, lp, cfg)
+            x, _ = ffn_block(x + o, lp, cfg)
     cache["pos"].fill_(S)
     return lm_logits(x[:, -1:], params, cfg), cache

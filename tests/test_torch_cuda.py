@@ -518,7 +518,7 @@ def test_flash_attention_wgmma_route_copies_misaligned_operands(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [72, 136, 256])
+@pytest.mark.parametrize("D", [72, 136, 192, 256])
 def test_flash_attention_bf16_outside_wgmma_takes_cuda_cores(cuda, D):
     rng = np.random.default_rng(D)
     q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda).to(torch.bfloat16)
@@ -613,7 +613,8 @@ def test_ssd_scan_on_the_card_and_refusals(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-1.3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-1.3b", "zamba2-2.7b", "deepseek-v2-236b",
+                                  "kimi-k2-1t-a32b", "minicpm3-4b"])
 def test_reduced_lm_served_on_the_card_equals_cpu(cuda, arch):
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -634,8 +635,26 @@ def test_reduced_lm_served_on_the_card_equals_cpu(cuda, arch):
         logits[str(dev)] = torch.cat(out, dim=1).cpu()
     if cfg.family != "ssm":
         assert tattn.flash_attention_kernel.launches > 0
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         assert tssd.ssd_intra.launches > 0
+    V = cfg.vocab_size
+    _close(logits[str(cuda)][..., :V], logits["cpu"][..., :V], 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-76b"])
+def test_reduced_frontend_forward_on_the_card_equals_cpu(cuda, arch):
+    """The audio frames and the vision patches of ``make_inputs``."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.inputs import make_inputs
+    from repro_torch.models.model import forward, init_params
+
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, "cpu")
+    inputs = make_inputs(cfg, SHAPES["train_4k"].reduced(), seed=0, device="cpu")
+    inputs.pop("labels")
+    logits = {str(dev): forward(_to(params, dev), _to(inputs, dev), cfg)[0].cpu() for dev in ("cpu", cuda)}
+    assert tattn.flash_attention_kernel.launches == cfg.num_layers
     V = cfg.vocab_size
     _close(logits[str(cuda)][..., :V], logits["cpu"][..., :V], 5e-2)
 

@@ -40,3 +40,28 @@ def test_torch_example_matches_jax_example(name, last):
     assert got[-1] == last
     same = lambda lines: [ln for ln in lines if not ln.startswith("phase times")]  # noqa: E731
     assert same(got) == same(want)
+
+
+def test_torch_serve_lm_example():
+    """``examples/torch_serve_lm.py`` on the CPU: one line for each of the
+    JAX example's four architectures, with its family and cache size (from
+    the JAX package's configs and ``cache_bytes``), then the closing line.
+    The JAX example itself takes ~90 s on the CPU (its eager MoE prefill),
+    so its lines are rebuilt here rather than run; the sampled tokens
+    differ, since the two packages draw their random weights differently."""
+    import dataclasses
+
+    from repro.configs import get_config
+    from repro.serve.kvcache import cache_bytes
+
+    got = _lines(_main("torch_serve_lm"), device="cpu")
+    archs = ("granite-3-8b", "deepseek-v2-236b", "mamba2-1.3b", "zamba2-2.7b")
+    assert got[0] == "batched serving across cache families (reduced configs):"
+    assert got[-1] == "all families served ✓"
+    assert len(got) == len(archs) + 2
+    for arch, line in zip(archs, got[1:-1]):
+        cfg = dataclasses.replace(get_config(arch).reduced(), frontend="none")
+        want = (f"{arch:22s} family={cfg.family:7s} "
+                f"cache={cache_bytes(cfg, 4, 64) / 1e6:7.2f}MB  prefill=")
+        assert line.startswith(want), (line, want)
+        assert "ms/tok  sample=[" in line

@@ -13,6 +13,9 @@ reference's Pallas kernels).  Tolerances, each with its reason:
   parameters' dtype: logits within 5e-2, the bar of the reference's
   decode-vs-forward test (``tests/test_models.py``); caches within 1% of
   each tensor's largest magnitude (one bfloat16 rounding apart).
+
+The JAX MoE block runs under ``shard_map``, so MoE configs get a 1 x 1
+``("data", "model")`` mesh on the JAX side (as ``conftest.smoke_mesh``).
 """
 import dataclasses
 import functools
@@ -29,24 +32,34 @@ import repro.models.mamba as jM
 import repro.models.model as jmodel
 import repro.serve.kvcache as jkv
 import repro.serve.serve_step as jserve
+from repro.configs import SHAPES as J_SHAPES
 from repro.configs import all_archs as j_all_archs
 from repro.configs import get_config as j_get_config
+from repro.core import compat
+from repro.launch import inputs as jinputs
 
 import repro_torch.models.attention as tA
 import repro_torch.models.layers as tL
 import repro_torch.models.mamba as tM
 import repro_torch.models.model as tmodel
+import repro_torch.models.moe as tmoe
 import repro_torch.serve.kvcache as tkv
 import repro_torch.serve.serve_step as tserve
-from repro_torch.api.errors import NotPortedError
-from repro_torch.configs import all_archs, get_config
+from repro_torch.configs import SHAPES, all_archs, get_config
 from repro_torch.interop import lm_params_from_numpy
+from repro_torch.launch import inputs as tinputs
 from repro_torch.launch import serve as tserve_cli
 
 CPU = "cpu"
 KEY = jax.random.PRNGKey(0)
 LOGITS_ATOL = 5e-2
 CACHE_REL = 1e-2
+MESH = compat.make_mesh((1, 1), ("data", "model"))
+
+
+def jmesh(cfg):
+    """The JAX side's mesh: the 1 x 1 mesh for MoE (its ``shard_map``)."""
+    return MESH if cfg.family == "moe" else None
 
 
 def T(x, dtype=None):
@@ -205,6 +218,10 @@ SLICE = {
     "zamba2-2.7b": ("zamba2-2.7b", {}, 12, 10, 16),
     # three SSD chunks in the prefill, four in the forward pass
     "zamba2-2.7b-chunk16": ("zamba2-2.7b", dict(ssm_chunk=16), 64, 48, 64),
+    # MoE + MLA, MoE + GQA at head dim 32, MLA with a dense MLP
+    "deepseek-v2-236b": ("deepseek-v2-236b", {}, 12, 10, 16),
+    "kimi-k2-1t-a32b": ("kimi-k2-1t-a32b", {}, 12, 10, 16),
+    "minicpm3-4b": ("minicpm3-4b", {}, 12, 10, 16),
 }
 
 
@@ -220,28 +237,36 @@ def slice_runs():
         jc, tc, jp, tp = jax_params(arch, **changes)
         tokens = np.random.default_rng(0).integers(0, jc.vocab_size, (2, S)).astype(np.int32)
         jt, tt = jnp.asarray(tokens), torch.as_tensor(tokens).long()
-        jfwd = jax.jit(lambda p, t: jmodel.forward(p, {"tokens": t}, jc, None)[0])(jp, jt)
+        mesh = jmesh(jc)
+        jfwd, jaux = jax.jit(lambda p, t: jmodel.forward(p, {"tokens": t}, jc, mesh))(jp, jt)
         # eagerly, as the reference's serving CLI runs it: its jitted prefill
         # fuses the bfloat16 conv sums in float32 and moves its own SSM
         # state further than the 1% bar from the eager one; the port rounds
-        # per op, as the eager run does
-        jlp, jcache = jserve.prefill_with_cache(jp, jt[:, :P], jc, None, MAX)
-        jstep = jax.jit(jserve.make_decode_step(jc, None))
+        # per op, as the eager run does.  MoE has no SSM state, and its
+        # eager shard_map dispatch takes ~40 s a prefill: jitted there.
+        prefill = jserve.prefill_with_cache
+        if jc.family == "moe":
+            prefill = jax.jit(prefill, static_argnums=(2, 3, 4))
+        jlp, jcache = prefill(jp, jt[:, :P], jc, mesh, MAX)
+        jstep = jax.jit(jserve.make_decode_step(jc, mesh))
         jdec, c = [], jcache
         for t in (P, P + 1):
             logits, c = jstep(jp, c, jt[:, t:t + 1])
             jdec.append(logits)
         with torch.inference_mode():
-            tfwd = tmodel.forward(tp, {"tokens": tt}, tc)[0]
+            tfwd, taux = tmodel.forward(tp, {"tokens": tt}, tc)
             tlp, tcache = tserve.prefill_with_cache(tp, tt[:, :P], tc, MAX)
             tcache_prefill = {k: v.clone() for k, v in tcache.items()}
             tstep = tserve.make_decode_step(tc)
-            tdec, c = [], tcache
+            tdec, dropped, c = [], [], tcache
             for t in (P, P + 1):
+                tmoe.reset_dropped()
                 logits, c = tstep(tp, c, tt[:, t:t + 1])
                 tdec.append(logits)
+                dropped.append(tmoe.dropped_assignments())
         runs[case] = dict(cfg=tc, P=P, jfwd=jfwd, tfwd=tfwd, jlp=jlp, tlp=tlp, jcache=jcache,
-                          tcache=tcache_prefill, jdec=jdec, tdec=tdec)
+                          tcache=tcache_prefill, jdec=jdec, tdec=tdec, dropped=dropped,
+                          jaux=float(jaux), taux=float(taux))
         return runs[case]
 
     return get
@@ -255,6 +280,9 @@ def test_forward_logits(slice_runs, case):
     assert bool(torch.isfinite(r["tfwd"]).all())
     assert_close(r["tfwd"][..., :V], np.asarray(r["jfwd"])[..., :V], LOGITS_ATOL)
     assert bool((r["tfwd"][..., V:] == -1e30).all())
+    # the MoE layers' aux losses, summed (0 without MoE)
+    assert abs(r["taux"] - r["jaux"]) <= 1e-5 * max(1.0, abs(r["jaux"]))
+    assert (r["taux"] > 0) == (r["cfg"].family == "moe")
 
 
 @pytest.mark.parametrize("case", sorted(SLICE))
@@ -271,14 +299,20 @@ def test_prefill_logits_and_cache(slice_runs, case):
 def test_decode_steps(slice_runs, case):
     """Two teacher-forced decode steps: equal to the reference's, and to
     the port's own forward pass over the same tokens (as the reference's
-    decode-vs-forward test holds its own)."""
+    decode-vs-forward test holds its own).  An MoE decode step runs at
+    capacity ``int(B*K/E*1.25) + 1`` (1 here): a step that dropped an
+    assignment computes another function than the forward pass, as in the
+    reference, and is held to the reference's step alone."""
     r = slice_runs(case)
     V, P = r["cfg"].vocab_size, r["P"]
     errs = [float((r["tlp"][:, -1, :V] - r["tfwd"][:, P - 1, :V]).abs().max())]
     for i, (td, jd) in enumerate(zip(r["tdec"], r["jdec"])):
         assert_close(td[..., :V], np.asarray(jd)[..., :V], LOGITS_ATOL, f"decode step {i}")
-        errs.append(float((td[:, 0, :V] - r["tfwd"][:, P + i, :V]).abs().max()))
+        if r["dropped"][i] == 0:
+            errs.append(float((td[:, 0, :V] - r["tfwd"][:, P + i, :V]).abs().max()))
     assert max(errs) < LOGITS_ATOL, errs
+    if r["cfg"].family != "moe":
+        assert r["dropped"] == [0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -349,24 +383,56 @@ def test_init_params_recipes():
     assert all(torch.equal(got[k], v) for k, v in _flat(again).items())
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("kimi-k2-1t-a32b", "MoE"), ("deepseek-v2-236b", "MoE"), ("minicpm3-4b", "MLA"),
-    ("hubert-xlarge", "audio"), ("internvl2-76b", "vision"),
-])
-def test_unported_families_raise(arch, what):
-    cfg = get_config(arch).reduced()
-    params = tmodel.init_params(cfg, 0, CPU)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotPortedError, match=what):
-        tmodel.forward(params, {"tokens": tokens}, cfg)
-    with pytest.raises(NotPortedError, match=what):
-        tserve.prefill_with_cache(params, tokens, cfg, 8)
-    with pytest.raises(NotPortedError, match=what):
-        tserve.make_decode_step(cfg)
-    if cfg.attn == "mla":
-        x = torch.zeros((1, 4, cfg.d_model))
-        with pytest.raises(NotPortedError, match="MLA"):
-            tA.attention_block(x, {}, cfg, torch.arange(4))
+@pytest.mark.parametrize("arch", j_all_archs())
+def test_active_param_count_matches_jax(arch):
+    for jc, tc in ((j_get_config(arch), get_config(arch)),
+                   (j_get_config(arch).reduced(), get_config(arch).reduced())):
+        assert tmodel.active_param_count(tc) == jmodel.active_param_count(jc)
+        assert (tmodel.active_param_count(tc) < tmodel.param_count(tc)) == bool(tc.num_experts)
+
+
+# ---------------------------------------------------------------------------
+# the modality frontends and launch/inputs.py
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", j_all_archs())
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_make_inputs_bit_equal(arch, shape):
+    jc, tc = j_get_config(arch).reduced(), get_config(arch).reduced()
+    js, ts = J_SHAPES[shape].reduced(), SHAPES[shape].reduced()
+    want = jinputs.make_inputs(jc, js, seed=3)
+    got = tinputs.make_inputs(tc, ts, seed=3, device=CPU)
+    specs = tinputs.input_specs(tc, ts)
+    jspecs = jinputs.input_specs(jc, js)
+    assert list(got) == list(want) == list(specs) == list(jspecs)
+    for name, w in want.items():
+        g = got[name]
+        assert (g.shape, g.dtype) == (specs[name].shape, specs[name].dtype), name
+        assert specs[name].shape == tuple(jspecs[name].shape)
+        assert str(g.dtype).removeprefix("torch.") == jnp.dtype(w.dtype).name, name
+        wn = np.asarray(w)
+        if wn.dtype.name == "bfloat16":  # the bits
+            np.testing.assert_array_equal(g.view(torch.int16).numpy(), wn.view(np.int16), err_msg=name)
+        else:
+            np.testing.assert_array_equal(g.numpy(), wn, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-76b"])
+def test_frontend_forward_matches_jax(arch):
+    """The audio frontend (frame features, no embedding; non-causal) and
+    the vision frontend (patches before the tokens, positions over both)."""
+    jc, tc, jp, tp = jax_params(arch)
+    assert tc.frontend != "none"
+    shape = SHAPES["train_4k"].reduced()
+    jin = jinputs.make_inputs(jc, J_SHAPES["train_4k"].reduced(), seed=1)
+    tin = tinputs.make_inputs(tc, shape, seed=1, device=CPU)
+    want = jax.jit(lambda p, i: jmodel.forward(p, i, jc, None)[0])(
+        jp, {k: v for k, v in jin.items() if k != "labels"})
+    with torch.inference_mode():
+        got, aux = tmodel.forward(tp, tin, tc)
+    V = tc.vocab_size
+    assert got.shape == tuple(want.shape) == (shape.global_batch, shape.seq_len, tmodel.padded_vocab(tc))
+    assert bool(torch.isfinite(got[..., :V]).all()) and float(aux) == 0.0
+    assert_close(got[..., :V], np.asarray(want)[..., :V], LOGITS_ATOL)
 
 
 def test_lm_params_from_numpy_bf16_and_refusals():
@@ -393,3 +459,37 @@ def test_serve_cli_on_cpu(capsys):
     np.testing.assert_array_equal(tserve_cli.main(argv), gen)
     out = capsys.readouterr().out
     assert f"cache {tkv.cache_bytes(cfg, 2, 128) / 1e6:.2f} MB" in out and "seq 1:" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b", "minicpm3-4b", "internvl2-76b"])
+def test_serve_cli_moe_mla_and_frontend(arch):
+    """The families the CLI refused before: MoE, MLA, and a vision config
+    served with ``frontend="none"`` (as the reference's CLI does)."""
+    gen = tserve_cli.main(["--arch", arch, "--device", "cpu", "--batch", "2", "--gen-len", "3",
+                           "--prompt-len", "6", "--max-len", "16"])
+    assert gen.shape == (2, 3) and gen.min() >= 0 and gen.max() < get_config(arch).reduced().vocab_size
+
+
+def test_serve_cli_refuses_encoder_only():
+    with pytest.raises(SystemExit, match="encoder-only"):
+        tserve_cli.main(["--arch", "hubert-xlarge", "--device", "cpu"])
+
+
+def test_analyze_cli_matches_run_anotherme(capsys):
+    """``python -m repro_torch.launch.analyze --n 300 --device cpu``: the
+    communities and every count of the JAX pipeline on the same world."""
+    from repro.core import AnotherMeConfig, run_anotherme
+    from repro.data import synthetic_setup
+
+    from repro_torch.launch import analyze
+
+    res = analyze.main(["--n", "300", "--device", "cpu"])
+    batch, forest = synthetic_setup(300, num_types=30, seed=0)
+    want = run_anotherme(batch, forest, AnotherMeConfig(k=3, rho=2.0, community_mode="cliques"))
+    assert sorted(map(sorted, res.communities)) == sorted(map(sorted, want.communities))
+    assert {(int(a), int(b)) for a, b in res.similar_pairs} == {(int(a), int(b)) for a, b in want.similar_pairs}
+    counts = [k for k, v in want.stats.items() if not k.startswith("t_")]
+    assert {k: res.stats[k] for k in counts} == {k: want.stats[k] for k in counts}
+    assert res.stats["num_communities"] > 0
+    out = capsys.readouterr().out
+    assert "trajectories          : 300" in out and "largest communities" in out
