@@ -202,10 +202,10 @@ phases, and exits non-zero if any phase fails:
    ``launch/inputs.py::make_inputs``, card against CPU.
 21. lm zamba2 / granite / deepseek-v2 / minicpm3 full — zamba2-2.7b,
    granite-3-8b, deepseek-v2-236b (cut from 60 layers to 4) and
-   minicpm3-4b (all 62 layers) at their full published widths (random
+   minicpm3-4b (cut from 62 layers to 31) at their full published widths (random
    bfloat16 weights from a seed) serve 4 prompts of 2,048 tokens and 32
    greedy tokens each: the prefill launches #6 9 (zamba2), 40 (granite),
-   4 (deepseek-v2) and 62 (minicpm3) times, on the wgmma route but for
+   4 (deepseek-v2) and 31 (minicpm3) times, on the wgmma route but for
    deepseek-v2's MLA head dim of 192, which takes the CUDA-core route, and
    #7 54 times (zamba2), every one on its wgmma route; the first call's
    kernel operands are rerun through the plain versions; the prefill is
@@ -228,10 +228,36 @@ phases, and exits non-zero if any phase fails:
    operands on both routes beside its plain version, with the tensor-core
    source's ptxas registers, spills and HGMMA count.
 
+23. train kernels — each kernel's autograd op (the kernel forward, a
+   torch-ops backward) against autograd through its plain version in
+   float32, on the card: #6 at zamba2's [2, 4096, 32, 80] and granite's
+   [2, 4096, 32/8, 128] (bfloat16, causal; dq, dk, dv within 3e-2
+   relative L2), #7 at zamba2's [64, 128, 80, 64] on both routes (1e-4)
+   and under ``bf16_intra`` (5e-2); the forward, the backward and SDPA's
+   forward + backward timed.
+24. train small — reduced granite-3-8b, mamba2-1.3b, zamba2-2.7b and
+   deepseek-v2-236b: the loss and every gradient leaf on the card against
+   the CPU (5e-2; every leaf finite and nonzero; equal MoE drops), and a
+   train step on the card.
+25. train zamba2 full — published widths, all 54 layers, random bfloat16
+   weights: every gradient leaf of a 2 x 4,096 microbatch finite and
+   nonzero; 3 steps on one batch of 4 x 4,096 tokens (2 microbatches,
+   float32 moments, lr 3e-4), the loss falling, #6 launched 36 and #7 216
+   times a step (forward and recompute), each backward once a layer a
+   microbatch; a profiled fourth step; a step with 8-bit moments and EF
+   compression; the first group (6 mamba layers and the shared block) at
+   published widths, its whole gradient within 5e-2 relative L2 of the
+   plain versions' path.  Step seconds, tokens/s and peak memory logged.
+26. train example — ``examples/torch_train_lm.py`` on the card (tiny-100m,
+   SSH dedup, 16 steps): the loss falls; a resume from its checkpoint
+   runs only the remaining 4 steps.
+
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
-never launched fails.  The second-to-last line is a JSON object with one
-entry per kernel; the last line is
+never launched fails.  #6's and #7's entries also carry their training
+launches (``launches_training``) and gradient figures (``training``).  The
+second-to-last line is a JSON object with one entry per kernel; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -240,6 +266,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3350,27 +3377,34 @@ def _kernel_kind(name):
     return "elementwise and other"
 
 
-def _profiled_split(torch, fn, tag):
-    """Run ``fn`` under ``torch.profiler`` and log the host wall, the
-    device's busy and idle shares and the device time by kernel kind."""
+def _profiled_split(torch, fn, tag, top=8):
+    """Run ``fn`` under ``torch.profiler`` (the device's activity alone: a
+    training step runs ~10^5 host ops) and log the host wall, the device's
+    busy and idle shares, the device time by kernel kind and the ``top``
+    kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = _kernel_kind(e.name)
-            by[k] = by.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    by, names = {}, {}
+    # the raw device events: ``prof.events()`` would first build every
+    # event's Python record (~0.1 ms an event, ~10^5 events a training step)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k, ms = _kernel_kind(e.name()), e.duration_ns() / 1e6
+            by[k] = by.get(k, 0.0) + ms
+            names[e.name()] = names.get(e.name(), 0.0) + ms
     busy = sum(by.values())
     check(busy > 0, f"{tag}: the profiler saw no device time")
     parts = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    parts += "; top kernels: " + ", ".join(
+        f"{n[:80]} {v:.1f} ms" for n, v in sorted(names.items(), key=lambda kv: -kv[1])[:top])
     log(f"{tag} (profiled): host wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%): {parts}")
 
@@ -3892,7 +3926,9 @@ def phase_lm(torch, dev, figures):
             # 4 of 60 layers: the 60 would be ~476 GB of bfloat16 weights
             ("deepseek-v2-236b", {"flash_attention_kernel": 4},
              dict(routes={"flash_attention_kernel": "cuda_cores"}, num_layers=4)),
-            ("minicpm3-4b", {"flash_attention_kernel": 62}, {})):
+            # 31 of 62 layers: the smoke's 600 s aim once the training
+            # phases joined it
+            ("minicpm3-4b", {"flash_attention_kernel": 31}, dict(num_layers=31))):
         t0 = time.perf_counter()
         full[arch] = phase_lm_full(torch, dev, arch, expect, **kw)
         lm_seconds[arch] = time.perf_counter() - t0
@@ -3901,6 +3937,430 @@ def phase_lm(torch, dev, figures):
     entries = phase_timing_lm(torch, dev, full, figures)
     lm_seconds["lm timing"] = time.perf_counter() - t0
     log(json.dumps({"lm_phase_s": lm_seconds}))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# LM training: #6 and #7 forward with a gradient through each
+# ---------------------------------------------------------------------------
+# zamba2-2.7b's train_4k length, a global batch of 4 as 2 microbatches of 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 4_096, 4, 2
+TRAIN_GRAD_REL = 5e-2
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _vjp(torch, fn, args, cots):
+    """Gradients of sum(out * cotangent) with respect to ``args``."""
+    args = [a.detach().clone().requires_grad_() for a in args]
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(sum((o.float() * c).sum() for o, c in zip(outs, cots)), args)
+
+
+def _counted_train(fn):
+    """``_counted`` with #6's and #7's backward counts set to 0 too; returns
+    (result, launches, backward calls)."""
+    w = {name: _wrappers()[name] for name in ("flash_attention_kernel", "ssd_intra")}
+    for wrapper in w.values():
+        wrapper.backward_calls = 0
+    out, counts = _counted(fn)
+    return out, counts, {name: wrapper.backward_calls for name, wrapper in w.items()}
+
+
+def _flash_train_row(torch, q, k, v, what):
+    """#6's autograd op at one shape: its gradient against autograd through
+    the plain version in float32 (3e-2 relative L2); the forward kernel,
+    ``flash_attention_bwd`` and SDPA's forward + backward timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    rng_dout = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(1),
+                           device=q.device)
+    got = _vjp(torch, lambda q, k, v: flash_attention(q, k, v, causal=True), (q, k, v), (rng_dout,))
+    want = _vjp(torch, lambda q, k, v: attn.flash_attention_plain(q, k, v, causal=True),
+                [t.float() for t in (q, k, v)], (rng_dout,))
+    errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+    check(all(g.dtype == q.dtype and bool(torch.isfinite(g).all()) for g in got), f"{what}: grads")
+    check(max(errs) <= 3e-2, f"{what}: dq/dk/dv relative L2 {errs} > 3e-2")
+    out = attn.flash_attention_kernel(q, k, v, causal=True)
+    dout = rng_dout.to(q.dtype)
+    fwd_ms = _time_ms(torch, lambda: attn.flash_attention_kernel(q, k, v, causal=True))
+    bwd_ms = _time_ms(torch, lambda: attn.flash_attention_bwd(q, k, v, out, dout, causal=True), reps=3)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qs, ks, vs), dout.transpose(1, 2))
+
+    sdpa_ms = _time_ms(torch, sdpa)
+    B, S, H, D = q.shape
+    pairs = B * H * _causal_pairs(S, k.shape[1])
+    # five products a causal pair (scores, dp, dv, dq, dk), 2 flops a
+    # multiply-add; each of q, k, v, out, dout read once, dq, dk, dv written
+    flops = 10 * D * pairs
+    nbytes = (3 * q.numel() + 3 * k.numel() + 2 * q.numel()) * q.element_size()
+    bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+    fp32_bound, _ = _bound_ms(nbytes, flops, FP32_FLOPS)
+    row = dict(shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}",
+               grad_rel_l2=max(errs), forward_ms=fwd_ms, backward_ms=bwd_ms,
+               sdpa_fwd_bwd_ms=sdpa_ms, backward_bound_ms=bound, backward_bound_by=by,
+               backward_fp32_bound_ms=fp32_bound, backward_tflops=flops / bwd_ms / 1e9)
+    log(f"train kernels: #6 {what} {row['shape']}: gradient within 3e-2 of autograd through the plain "
+        f"version in float32 (dq, dk, dv {[round(e, 5) for e in errs]}); forward {fwd_ms:.3f} ms, "
+        f"flash_attention_bwd {bwd_ms:.3f} ms (float32 torch ops, {flops / bwd_ms / 1e9:.2f} TFLOP/s; "
+        f"bound {bound:.4f} ms by {by} at 989 TFLOP/s bf16, {fp32_bound:.4f} ms at 67 TFLOP/s fp32), "
+        f"SDPA forward + backward {sdpa_ms:.3f} ms")
+    return row
+
+
+def _ssd_train_rows(torch, dev):
+    """#7's autograd op at zamba2's operands [64, 128, 80, 64], N = 64:
+    the gradient of (y, state, cdecay) against autograd through the plain
+    version in float32 (rounded to the gradient's dtype) on bfloat16
+    operands (wgmma route), float32 operands (CUDA-core route), both within
+    1e-4, and under ``bf16_intra`` within 5e-2; the forward kernel and
+    ``ssd_intra_bwd`` timed."""
+    import numpy as np
+
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd.ops import ssd_intra_op
+
+    rng = np.random.default_rng(3)
+    BC, Q, H, P, N = 64, 128, 80, 64, 64
+    rows = {}
+    for dtype, bf16_intra, tol in ((torch.bfloat16, False, 1e-4), (torch.float32, False, 1e-4),
+                                   (torch.float32, True, 5e-2)):
+        ops = _ssd_operands(torch, dev, BC, Q, H, P, N, dtype, rng)
+        path = ssd.route(dtype, Q, P, N, bf16_intra=bf16_intra)
+        cots = [torch.as_tensor(rng.normal(size=o.shape).astype(np.float32), device=dev)
+                for o in ssd.ssd_intra_plain(*ops)]
+        got = _vjp(torch, lambda *a: ssd_intra_op(*a, bf16_intra=bf16_intra), ops, cots)
+        want = _vjp(torch, lambda *a: ssd.ssd_intra_plain(*a, bf16_intra=bf16_intra),
+                    [t.float() for t in ops], cots)
+        # bfloat16 operands get bfloat16 gradients: held against the float32
+        # gradient rounded the same way
+        errs = [_rel_l2(g, w.to(g.dtype)) for g, w in zip(got, want)]
+        what = f"#7 [{path}{', bf16_intra' if bf16_intra else ''}] x {[BC, Q, H, P]} {dtype}"
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"train kernels: {what}: grads not finite")
+        check(max(errs) <= tol, f"train kernels: {what}: (dx, dcum, ddt, dB, dC) relative L2 {errs} > {tol}")
+        outs = ssd.ssd_intra(*ops, bf16_intra=bf16_intra)
+        fwd_ms = _time_ms(torch, lambda: ssd.ssd_intra(*ops, bf16_intra=bf16_intra), batch=10)
+        bwd_ms = _time_ms(torch, lambda: ssd.ssd_intra_bwd(*ops, *[torch.ones_like(o) for o in outs],
+                                                           bf16_intra=bf16_intra), reps=3)
+        BC_, Q_, H_, P_ = ops[0].shape
+        N_ = ops[3].shape[-1]
+        # the backward's least work: its inputs and cotangents read once, the
+        # five gradients written once; its products (S recomputed, dM = dy x^T
+        # and M^T dy over the causal pairs, dS's two products, and the state's
+        # four) at the bf16 tensor-core rate
+        tri = Q_ * (Q_ + 1) // 2
+        flops = 2 * BC_ * (3 * tri * N_ + 2 * H_ * tri * P_ + 2 * H_ * Q_ * P_ * N_ + 2 * H_ * Q_ * N_)
+        nbytes = sum(t.numel() * t.element_size() for t in (*ops, *got)) + sum(4 * c.numel() for c in cots)
+        bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        key = path + ("_bf16_intra" if bf16_intra else "")
+        rows[key] = dict(grad_rel_l2=max(errs), forward_ms=fwd_ms, backward_ms=bwd_ms,
+                         backward_bound_ms=bound, backward_bound_by=by,
+                         shape=f"x {[BC, Q, H, P]} {str(dtype).removeprefix('torch.')} N={N}")
+        log(f"train kernels: {what}: gradient within {tol} of autograd through the plain version "
+            f"({[float(f'{e:.3g}') for e in errs]}); forward {fwd_ms:.3f} ms, ssd_intra_bwd {bwd_ms:.3f} ms "
+            f"(float32 torch ops; bound {bound:.4f} ms by {by}: {nbytes / 1e6:.1f} MB, {flops:.3g} flops)")
+    return rows
+
+
+def phase_train_kernels(torch, dev):
+    """#6 at zamba2's [2, 4096, 32, 80] and granite's [2, 4096, 32/8, 128]
+    (bfloat16, causal) and #7 at zamba2's [64, 128, 80, 64]: each autograd
+    op's gradient against autograd through the plain version, and times."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    flash = {}
+    for what, (H, KH, D) in (("zamba2-2.7b", (32, 32, 80)), ("granite-3-8b", (32, 8, 128))):
+        q, k, v = _bf16_normal(torch, dev, rng, (2, TRAIN_SEQ, H, D), (2, TRAIN_SEQ, KH, D),
+                               (2, TRAIN_SEQ, KH, D))
+        flash[what] = _flash_train_row(torch, q, k, v, what)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return flash, _ssd_train_rows(torch, dev)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The model's attention and SSD scan through the plain versions (torch
+    autograd through their torch ops): the plain path the kernel path's
+    gradient is held against."""
+    from repro_torch.kernels.attention import kernel as attn
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import layers, mamba
+
+    real = layers.flash_attention, mamba.ssd_chunked
+    layers.flash_attention, mamba.ssd_chunked = attn.flash_attention_plain, ssd_ref.ssd_chunked
+    try:
+        yield
+    finally:
+        layers.flash_attention, mamba.ssd_chunked = real
+
+
+def _all_leaves(tree):
+    from repro_torch.train.optimizer import leaves
+
+    return leaves(tree)
+
+
+def phase_train_small(torch, dev):
+    """Reduced granite-3-8b (dense), mamba2-1.3b (ssm), zamba2-2.7b (hybrid)
+    and deepseek-v2-236b (MoE + MLA): the loss and every gradient leaf on
+    the card against the CPU (loss within 5e-2, each leaf within 5e-2
+    relative L2, every leaf finite and nonzero, equal MoE drops), then one
+    train step on the card.  Returns the launches of the card's runs."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.inputs import make_inputs
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (
+        TrainConfig, loss_and_grads, make_train_state, make_train_step,
+    )
+
+    launches = {}
+    for arch in ("granite-3-8b", "mamba2-1.3b", "zamba2-2.7b", "deepseek-v2-236b"):
+        cfg = get_config(arch).reduced()
+        params = init_params(cfg, 0, "cpu")
+        inputs = make_inputs(cfg, SHAPES["train_4k"].reduced(), seed=0, device="cpu")
+        runs = {}
+        for where in ("cpu", dev):
+            moe.reset_dropped()
+            (loss, _, grads), counts, bwd = _counted_train(
+                lambda: loss_and_grads(_to(params, where), _to(inputs, where), cfg))
+            runs[str(where)] = (float(loss), [g.cpu() for g in _all_leaves(grads)], moe.dropped_assignments(),
+                                counts, bwd)
+        (lc, gc, dc, _, _), (lg, gg, dg, counts, bwd) = runs["cpu"], runs[str(dev)]
+        expect_launched(counts, _lm_kernels(cfg))
+        check(abs(lg - lc) <= 5e-2, f"train small {arch}: loss card {lg} CPU {lc}")
+        check(dg == dc, f"train small {arch}: MoE drops card {dg} CPU {dc}")
+        errs = [_rel_l2(g, w) for g, w in zip(gg, gc)]
+        check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in gg),
+              f"train small {arch}: a gradient leaf is not finite or all zero on the card")
+        check(max(errs) <= TRAIN_GRAD_REL, f"train small {arch}: gradient leaves vs CPU {max(errs)} > 5e-2")
+        tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1))
+        p = _to(params, dev)
+        (_, _, m), step_counts, _ = _counted_train(
+            lambda: make_train_step(cfg, tcfg)(p, make_train_state(p, tcfg), _to(inputs, dev)))
+        check(bool(torch.isfinite(m["loss"])), f"train small {arch}: train step loss {m['loss']}")
+        launches[arch] = {k: counts[k] for k in _lm_kernels(cfg)}
+        log(f"train small {arch} (reduced): loss card {lg:.5f} CPU {lc:.5f}; {len(gg)} gradient leaves, "
+            f"worst relative L2 vs CPU {max(errs):.3g}, every leaf finite and nonzero; MoE drops {dg}; "
+            f"launches {launches[arch]}, backward calls { {k: bwd[k] for k in _lm_kernels(cfg)} }; a train "
+            f"step on the card: loss {float(m['loss']):.5f}, grad norm {float(m['grad_norm']):.4f}")
+    return launches
+
+
+def _train_batch(torch, dev, V):
+    import numpy as np
+
+    docs = torch.as_tensor(np.random.default_rng(5).integers(0, V, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+                           device=dev, dtype=torch.int32)
+    return {"tokens": docs[:, :-1].contiguous(), "labels": docs[:, 1:].contiguous()}
+
+
+def phase_train_full(torch, dev, arch="zamba2-2.7b"):
+    """zamba2-2.7b at published widths, all 54 layers, random bfloat16 init:
+    3 train steps on one batch of 4 x 4,096 tokens (2 microbatches, f32
+    moments, lr 3e-4, warmup 1), the loss falling from step 1 to 3; then a
+    step with 8-bit moments and EF compression.  Each step launches #6
+    (9 + 9 recomputed) and #7 (54 + 54) a microbatch and runs each
+    backward once a launch's forward; every gradient leaf of a microbatch
+    at the initial weights is finite and nonzero; a fourth step is
+    profiled (device activity); and the first group (6
+    mamba layers and the shared block) at published widths: the kernel
+    path's whole gradient within 5e-2 relative L2 of the plain path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count, units
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (
+        TrainConfig, loss_and_grads, make_train_state, make_train_step,
+    )
+
+    cfg = get_config(arch)
+    tag = f"train {arch} full"
+    n_units = len(units(cfg))
+    groups = cfg.num_layers // cfg.shared_attn_every
+    per_mb = {"flash_attention_kernel": 2 * groups, "ssd_intra": 2 * cfg.num_layers}
+    per_step = {k: TRAIN_ACCUM * v for k, v in per_mb.items()}
+    bwd_step = {k: v // 2 for k, v in per_step.items()}
+    parts = {}
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _train_batch(torch, dev, cfg.vocab_size)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # every gradient leaf of a microbatch at the initial weights, finite and
+    # nonzero: no leaf left without a gradient by a kernel's output
+    t0 = time.perf_counter()
+    mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    (_, _, grads), counts, bwd = _counted_train(lambda: loss_and_grads(params, mb, cfg))
+    flat = _all_leaves(grads)
+    bad = [i for i, g in enumerate(flat) if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    check(not bad, f"{tag}: {len(bad)} of {len(flat)} gradient leaves not finite or all zero")
+    check({k: counts[k] for k in per_mb} == per_mb, f"{tag}: a microbatch's launches {counts}")
+    n_leaves = len(flat)
+    del grads, flat
+    parts["microbatch grads"] = time.perf_counter() - t0
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1), grad_accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_train_state(params, tcfg)
+    step = make_train_step(cfg, tcfg)
+    losses, secs, step_counts = [], [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, state, m), counts, bwd = _counted_train(lambda: step(params, state, batch))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        got = {k: counts[k] for k in per_step}
+        check(got == per_step, f"{tag}: step {i + 1} launches {got}, expected {per_step} "
+              f"({TRAIN_ACCUM} microbatches x (forward + recompute))")
+        check(bwd == bwd_step, f"{tag}: step {i + 1} backward calls {bwd}, expected {bwd_step}")
+        step_counts = got
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(math.isfinite(v) for v in losses) and losses[2] < losses[0],
+          f"{tag}: losses {losses} did not fall from step 1 to step 3")
+    t0 = time.perf_counter()
+    _profiled_split(torch, lambda: step(params, state, batch), f"{tag} train step 4 (f32 moments)")
+    parts["profiled step"] = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    # 8-bit moments and EF compression
+    tcfg8 = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, state_bits=8), grad_accum=TRAIN_ACCUM,
+                        compress_grads=True)
+    state8 = make_train_state(params, tcfg8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (params, state8, m8), counts8, _ = _counted_train(lambda: make_train_step(cfg, tcfg8)(params, state8, batch))
+    loss8 = float(m8["loss"])
+    s8 = time.perf_counter() - t0
+    check(math.isfinite(loss8), f"{tag}: the 8-bit + compression step's loss {loss8}")
+    check({k: counts8[k] for k in per_step} == per_step, f"{tag}: 8-bit step launches {counts8}")
+    del state8
+    torch.cuda.empty_cache()
+    peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    group = _first_group_grads(torch, cfg, params, mb)
+    parts["first group"] = time.perf_counter() - t0
+    log(f"{tag}: {param_count(cfg) / 1e9:.3f} B parameters, init {init_s:.2f} s; {n_units} recomputed "
+        f"units; 3 steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({TRAIN_ACCUM} microbatches): losses "
+        f"{[round(v, 5) for v in losses]}, step seconds {[round(v, 3) for v in secs]} "
+        f"({tokens / statistics.median(secs):.1f} tokens/s at the median), peak {peak:.2f} GiB "
+        f"(f32 moments); launches a step {step_counts}, backward calls {bwd_step}; the 8-bit + "
+        f"compression step: loss {loss8:.5f}, {s8:.3f} s; peak over all {peak_all:.2f} GiB; all "
+        f"{n_leaves} gradient leaves of a microbatch at the initial weights finite and nonzero; seconds "
+        f"{ {k: round(v, 2) for k, v in parts.items()} }")
+    return dict(per_step=per_step, losses=losses, step_s=secs, tokens_per_s=tokens / statistics.median(secs),
+                peak_gib=peak, peak_all_gib=peak_all, step8_s=s8, loss8=loss8, first_group=group,
+                seconds=parts)
+
+
+def _first_group_grads(torch, cfg, params, mb):
+    """The model cut to its first unit (6 mamba layers and the shared
+    block) at published widths: the whole gradient on the kernel path
+    against the plain path, same dtype, same batch, on the card."""
+    from repro_torch.models.model import units
+    from repro_torch.train.train_step import loss_and_grads
+
+    n = len(units(cfg)[0])
+    cut = dataclasses.replace(cfg, num_layers=n)
+    sub = dict(params)
+    sub["blocks"] = {k: (v[:n] if not isinstance(v, dict) else {kk: vv[:n] for kk, vv in v.items()})
+                     for k, v in params["blocks"].items()}
+    (loss_k, _, g_k), counts, _ = _counted_train(lambda: loss_and_grads(sub, mb, cut))
+    g_k = torch.cat([g.float().flatten() for g in _all_leaves(g_k)])
+    with _plain_kernels():
+        (loss_p, _, g_p), plain_counts, _ = _counted_train(lambda: loss_and_grads(sub, mb, cut))
+    g_p = torch.cat([g.float().flatten() for g in _all_leaves(g_p)])
+    err = _rel_l2(g_k, g_p)
+    check(sum(plain_counts.values()) == 0, f"the plain path launched {plain_counts}")
+    check(bool(torch.isfinite(g_p).all()), "the plain path's first-group gradient is not finite")
+    check(err <= TRAIN_GRAD_REL, f"first group: kernel path's gradient vs the plain path's {err} > 5e-2")
+    log(f"train first group ({n} mamba layers + the shared block, published widths, {mb['tokens'].shape[0]} "
+        f"x {mb['tokens'].shape[1]} tokens): loss kernels {float(loss_k):.5f} plain {float(loss_p):.5f}; "
+        f"whole gradient ({g_k.numel()} values) within {err:.4g} relative L2 of the plain path's; launches "
+        f"{ {k: counts[k] for k in ('flash_attention_kernel', 'ssd_intra')} }")
+    return dict(rel_l2=err, loss_kernels=float(loss_k), loss_plain=float(loss_p))
+
+
+def phase_train_example(torch, dev, ckpt_dir):
+    """``examples/torch_train_lm.py`` on the card at a few steps (tiny-100m,
+    SSH dedup, a corpus small enough that batches repeat): the loss falls;
+    then a resume from its checkpoint runs only the remaining steps."""
+    import contextlib as _ctx
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location("torch_train_lm", HERE / "examples" / "torch_train_lm.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    argv = ["--steps", "16", "--num-docs", "64", "--seq-len", "256", "--global-batch", "8",
+            "--lr", "1e-3", "--warmup", "2", "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "8",
+            "--log-every", "100", "--device", str(dev)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with _ctx.redirect_stdout(out):
+        (res, counts) = _counted(lambda: module.main(argv))
+    s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(lines[-1] == "training improved the loss ✓", f"train example ended {lines[-1:]!r}")
+    with _ctx.redirect_stdout(io.StringIO()):
+        resumed = module.main([a if a != "16" else "20" for a in argv] + ["--resume"])
+    check(len(resumed["losses"]) == 4, f"train example: the resume ran {len(resumed['losses'])} steps, not 4")
+    losses = res["losses"]
+    log(f"train example (tiny-100m, ssh dedup, 16 steps on the card): {lines[1]}; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {s:.2f} s; resumed at step 16: 4 steps ran; launches "
+        f"{counts['flash_attention_kernel']} of #6")
+    return {"flash_attention_kernel": counts["flash_attention_kernel"]}
+
+
+def phase_train(torch, dev, entries):
+    """The training phases (23-26); logs each phase's seconds, and adds to
+    #6's and #7's entries of ``entries`` their training launches
+    (``launches_training``) and gradient figures."""
+    seconds = {}
+    t0 = time.perf_counter()
+    flash_rows, ssd_rows = phase_train_kernels(torch, dev)
+    seconds["train kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = phase_train_small(torch, dev)
+    seconds["train small"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = phase_train_full(torch, dev)
+    seconds["train zamba2 full"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        example = phase_train_example(torch, dev, Path(tmp))
+    seconds["train example"] = time.perf_counter() - t0
+    by_name = {e["name"]: e for e in entries}
+    for name in ("flash_attention_kernel", "ssd_intra"):
+        if name not in by_name:  # the training phases run alone
+            by_name[name] = {"name": name}
+            entries.append(by_name[name])
+    for name, rows in (("flash_attention_kernel", flash_rows), ("ssd_intra", ssd_rows)):
+        launches = {f"train small {a}": c[name] for a, c in small.items() if name in c}
+        launches["zamba2-2.7b train step (2 microbatches, forward + recompute)"] = full["per_step"][name]
+        if name in example:
+            launches["train example (16 steps)"] = example[name]
+        check(sum(launches.values()) > 0, f"kernel {name} was launched on no training path")
+        by_name[name]["launches_training"] = launches
+        by_name[name]["training"] = rows
+    figures = {k: v for k, v in full.items() if k != "per_step"}
+    log(json.dumps({"train_phase_s": seconds, "train_zamba2_full": figures}))
     return entries
 
 
@@ -4060,6 +4520,8 @@ def main() -> int:
     log(json.dumps({"tuning_geolife_dedup_phase_s": tuning_seconds, "geolife": geolife_figures,
                     "dedup": dedup_figures}))
     entries += phase_lm(torch, dev, figures)
+    torch.cuda.empty_cache()
+    phase_train(torch, dev, entries)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)

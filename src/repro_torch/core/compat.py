@@ -14,7 +14,8 @@ torch devices, one per shard:
   (bulk-synchronous phases): each local step is a list comprehension over
   the shards' tensors, and each collective is a mesh method that takes one
   tensor per shard and returns, for each receiver, a tensor on the
-  receiver's device;
+  receiver's device (``all_to_all``, ``all_gather``, ``pmax``, ``psum``,
+  ``ppermute``);
 * :func:`shard_map` splits the global inputs by their specs (row blocks for
   ``P(axis, None)``, one copy per shard for ``P(None, ...)``), calls the
   program once with one list per input, and stacks its per-shard outputs.
@@ -113,6 +114,23 @@ class ShardMesh:
         for x in xs[1:]:
             m = torch.maximum(m, x.to(self.devices[0]))
         return self._per_device(lambda d: m.to(d))
+
+    def psum(self, xs: Sequence[torch.Tensor]) -> list:
+        """``psum``: the elementwise sum over the shards, in shard order, on
+        every shard's device."""
+        total = xs[0].to(self.devices[0])
+        for x in xs[1:]:
+            total = total + x.to(self.devices[0])
+        return self._per_device(lambda d: total.to(d))
+
+    def ppermute(self, xs: Sequence[torch.Tensor], perm) -> list:
+        """``ppermute``: for each ``(src, dst)`` of ``perm`` shard ``dst``
+        receives shard ``src``'s tensor, on its device; a shard that is no
+        pair's destination receives zeros."""
+        out = [torch.zeros_like(x) for x in xs]
+        for src, dst in perm:
+            out[dst] = xs[src].to(self.devices[dst])
+        return out
 
 
 def make_mesh(axis_shapes, axis_names, *, devices=None) -> ShardMesh:

@@ -2,8 +2,9 @@
 
 What crosses between the JAX package and the port is the world (forest and
 trajectories), intermediate buffers and, for the LM scaffold, a parameter
-tree.  Each function here takes numpy arrays only, so a caller can feed
-both packages the same inputs and compare them stage by stage.
+tree and its optimizer state.  Each function here takes numpy arrays only,
+so a caller can feed both packages the same inputs and compare them stage
+by stage.
 """
 from __future__ import annotations
 
@@ -78,3 +79,28 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
         return {k: convert(node[k], spec[k], path + (k,)) for k in spec}
 
     return convert(tree, build_param_specs(cfg), ())
+
+
+def opt_state_from_numpy(tree, cfg, device=None) -> dict:
+    """The port's optimizer state from the reference's
+    (``repro.train.optimizer.init_opt_state``'s tree as numpy arrays:
+    ``{"step", "moments": {leaf: {"m", "v"}}}``, each moment float32 or,
+    with 8-bit moments, an int8 ``{"q", "scale"}`` pair), leaf for leaf in
+    the arrays' dtypes.  Raises if the moments' tree differs from
+    ``build_param_specs(cfg)``'s."""
+    device = resolve_device(device)
+
+    def convert(node, spec, path):
+        if isinstance(spec, PS):
+            if not isinstance(node, dict) or set(node) != {"m", "v"}:
+                raise ValueError(f"{'/'.join(path)}: expected the moments {{m, v}}")
+            return {k: (_tensor(m, device) if not isinstance(m, dict)
+                        else {"q": _tensor(m["q"], device), "scale": _tensor(m["scale"], device)})
+                    for k, m in node.items()}
+        if not isinstance(node, dict) or set(node) != set(spec):
+            got = sorted(node) if isinstance(node, dict) else type(node).__name__
+            raise ValueError(f"{'/'.join(path) or 'moments'}: keys {got}, the spec has {sorted(spec)}")
+        return {k: convert(node[k], spec[k], path + (k,)) for k in spec}
+
+    return {"step": _tensor(tree["step"], device),
+            "moments": convert(tree["moments"], build_param_specs(cfg), ())}

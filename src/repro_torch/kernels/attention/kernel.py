@@ -1,4 +1,5 @@
-"""Flash attention (forward): the Hopper kernels and their plain version.
+"""Flash attention: the Hopper forward kernels, their plain version and the
+gradient.
 
 Port of ``repro/kernels/attention/kernel.py::flash_attention_pallas``, the
 kernel the JAX package wrote to slot in behind
@@ -28,6 +29,10 @@ Every launch adds one to ``flash_attention_kernel.launches`` and to its
 route's entry of ``flash_attention_kernel.launches_by_route``; an operand
 copied to meet a kernel's layout rules adds one to
 ``flash_attention_kernel.copies``.
+
+:func:`flash_attention_bwd` is the function's gradient in torch ops (the
+JAX package has no backward kernel: ``jax.grad`` of ``chunked_attention``
+is its gradient); ``ops.flash_attention`` pairs it with the forward.
 """
 from __future__ import annotations
 
@@ -107,6 +112,67 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + Qc] = o.permute(0, 3, 1, 2, 4).reshape(B, Qc, H, D).to(q.dtype)
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True):
+    """The gradient of :func:`flash_attention_plain`'s function (the
+    reference's ``chunked_attention``, p in float32) in torch ops:
+    ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    The flash-attention backward over q chunks of ``Q_CHUNK``: each
+    chunk's float32 scores are recomputed against the kv chunks (those
+    wholly above the causal diagonal skipped), first for each row's
+    logsumexp (with the forward's ``max(l, 1e-30)`` guard), then for
+    ``p``; with ``D = rowsum(dout * out)``, ``dv += p^T dout``,
+    ``dp = dout v^T``, ``ds = p (dp - D)``, ``dq += ds k / sqrt(D)`` and
+    ``dk += ds^T q / sqrt(D)``.  dk and dv sum over the ``H // KH`` query
+    heads that read each kv head.  No [B, H, S, S] matrix is formed: the
+    largest temporary is one [B, H, Q_CHUNK, KV_CHUNK] block."""
+    B, Sq, Skv, H, KH, D = check_operands(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be {tuple(q.shape)}, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}")
+    rep = H // KH
+    scale = 1.0 / math.sqrt(D)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros((B, Sq, H, D), **f32)
+    dk = torch.zeros((B, Skv, KH, D), **f32)
+    dv = torch.zeros((B, Skv, KH, D), **f32)
+    for q0 in range(0, Sq, Q_CHUNK):
+        Qc = min(Q_CHUNK, Sq - q0)
+        qg, dog, og = (t[:, q0:q0 + Qc].float().reshape(B, Qc, KH, rep, D) for t in (q, dout, out))
+        delta = (dog * og).sum(dim=-1).permute(0, 2, 3, 1)  # [B, KH, rep, Qc]
+        q_pos = torch.arange(q0, q0 + Qc, device=q.device)
+        kv_end = min(Skv, q0 + Qc) if causal else Skv
+        chunks = range(0, kv_end, KV_CHUNK)
+
+        def scores(k0):
+            s = torch.einsum("bqhrd,bkhd->bhrqk", qg, kf[:, k0:k0 + KV_CHUNK]) * scale
+            if causal:
+                k_pos = torch.arange(k0, min(k0 + KV_CHUNK, Skv), device=q.device)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            return s
+
+        m = torch.full((B, KH, rep, Qc), NEG_INF, **f32)
+        l = torch.zeros_like(m)
+        for k0 in chunks:
+            s = scores(k0)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(dim=-1)
+            m = m_new
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        dqg = torch.zeros((B, KH, rep, Qc, D), **f32)
+        for k0 in chunks:
+            kc, vc = kf[:, k0:k0 + KV_CHUNK], vf[:, k0:k0 + KV_CHUNK]
+            p = torch.exp(scores(k0) - lse[..., None])
+            ds = p * (torch.einsum("bqhrd,bkhd->bhrqk", dog, vc) - delta[..., None])
+            dv[:, k0:k0 + KV_CHUNK] += torch.einsum("bhrqk,bqhrd->bkhd", p, dog)
+            dk[:, k0:k0 + KV_CHUNK] += torch.einsum("bhrqk,bqhrd->bkhd", ds, qg) * scale
+            dqg += torch.einsum("bhrqk,bkhd->bhrqd", ds, kc) * scale
+        dq[:, q0:q0 + Qc] = dqg.permute(0, 3, 1, 2, 4).reshape(B, Qc, H, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def route(dtype: torch.dtype, D: int) -> str:
@@ -196,3 +262,5 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
 flash_attention_kernel.copies = 0
+# calls of :func:`flash_attention_bwd` through the autograd op (``ops.py``)
+flash_attention_kernel.backward_calls = 0

@@ -28,7 +28,9 @@ dtype, shape and mode (:func:`route`), and takes the plain version,
   not take ``bf16_intra``.
 
 Every launch adds one to ``ssd_intra.launches`` and to its route's entry of
-``ssd_intra.launches_by_route``.
+``ssd_intra.launches_by_route``.  :func:`ssd_intra_bwd` is the step's
+gradient in torch ops (the JAX package has no backward kernel);
+``ops.py`` pairs it with the forward.
 """
 from __future__ import annotations
 
@@ -72,6 +74,16 @@ def check_operands(x, cum, dt, B_, C_) -> tuple[int, int, int, int, int]:
     return BC, Q, H, P, B_.shape[2]
 
 
+def _tril_decay(cum, tri):
+    """``exp(cum_i - cum_j)`` [BC, H, Q, Q] on and below the diagonal, 0
+    above it.  The mask goes before the exponential: above the diagonal
+    ``cum_i - cum_j > 0`` overflows once a chunk's decay spans more than
+    ~88, and an inf there would meet a 0 in the backward (0 * inf)."""
+    cum_h = cum.transpose(1, 2)  # [BC, H, Q]
+    diff = cum_h[..., :, None] - cum_h[..., None, :]
+    return torch.exp(torch.where(tri, diff, torch.full((), -torch.inf, device=cum.device)))
+
+
 def ssd_intra_plain(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
     """The plain PyTorch version: x [BC,Q,H,P], cum/dt [BC,Q,H] float32,
     B_/C_ [BC,Q,N] -> (y [BC,Q,H,P], state [BC,H,P,N], cdecay [BC,H,1,1]),
@@ -80,13 +92,15 @@ def ssd_intra_plain(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
     ``_ssd_chunked``'s intra-chunk arithmetic with the chunks flattened:
     ``bf16_intra`` rounds the score and decay matrices (and x, B) to
     bfloat16 as the reference does, and the products accumulate in float32.
+    The decay is masked before its exponential (:func:`_tril_decay`): the
+    same values, and a finite autograd gradient where the reference's
+    unmasked ``exp`` overflows above the diagonal.
     """
     BC, Q, H, P, N = check_operands(x, cum, dt, B_, C_)
     mm = torch.bfloat16 if bf16_intra else torch.float32
     scores = torch.einsum("cqn,ckn->cqk", C_.to(mm).float(), B_.to(mm).float()).to(mm)
-    cum_h = cum.transpose(1, 2)  # [BC, H, Q]
-    decay = torch.exp(cum_h[..., :, None] - cum_h[..., None, :]).to(mm)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    decay = _tril_decay(cum, tri).to(mm)
     M = torch.where(tri, scores[:, None] * decay, torch.zeros((), dtype=mm, device=x.device)) \
         * dt.transpose(1, 2)[..., None, :].to(mm)
     xm = x.to(mm).float()
@@ -95,6 +109,54 @@ def ssd_intra_plain(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
     state = torch.einsum("ckn,ckhp->chpn", B_.to(mm).float(), xm * w[..., None])
     cdecay = torch.exp(cum[:, -1, :])[..., None, None]
     return y, state, cdecay
+
+
+def ssd_intra_bwd(x, cum, dt, B_, C_, dy, dstate, dcdecay, *, bf16_intra: bool = False):
+    """The gradient of :func:`ssd_intra_plain`'s function in torch ops:
+    given the cotangents of ``(y, state, cdecay)``, returns ``(dx, dcum,
+    ddt, dB, dC)`` in the inputs' dtypes (cum and dt float32).
+
+    With ``L = exp(cum_i - cum_j)`` masked to the lower triangle before
+    the exponential (so no inf meets a 0 where a chunk's decay spans more
+    than ~88), ``S = C B^T`` and ``M = S L dt_j``: ``dM = dy x^T``,
+    ``dx = M^T dy + B (dstate^T) w``; ``M`` is a product, so ``d cum_i +=
+    sum_j dM M`` and ``d cum_j -= sum_i dM M``, ``ddt_j += sum_i dM S L``,
+    ``dS = sum_h dM L dt_j`` (``dC = dS B``, ``dB = dS^T C``); the state's
+    weights ``w = exp(cum_last - cum_j) dt_j`` and ``cdecay =
+    exp(cum_last)`` give the rest.  Under ``bf16_intra`` x, B and C are
+    rounded to bfloat16 first, as the forward rounds them, and the
+    arithmetic stays float32."""
+    BC, Q, H, P, N = check_operands(x, cum, dt, B_, C_)
+    mm = torch.bfloat16 if bf16_intra else torch.float32
+    xm, Bm, Cm = (t.to(mm).float() for t in (x, B_, C_))
+    dy, dstate = dy.float(), dstate.float()
+    dcdecay = dcdecay.float().reshape(BC, H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    L = _tril_decay(cum, tri)  # [BC, H, Q(i), Q(j)]
+    SL = torch.einsum("cqn,ckn->cqk", Cm, Bm)[:, None] * L
+    dt_h = dt.transpose(1, 2)[..., None, :]  # dt_j, [BC, H, 1, Q]
+    M = SL * dt_h
+    dM = torch.einsum("cqhp,ckhp->chqk", dy, xm)
+    G = dM * M
+    dcum = (G.sum(dim=-1) - G.sum(dim=-2)).transpose(1, 2)  # [BC, Q, H]
+    ddt = (dM * SL).sum(dim=-2).transpose(1, 2)
+    dS = (dM * L * dt_h).sum(dim=1)  # [BC, Q(i), Q(j)]
+    dC = torch.einsum("cqk,ckn->cqn", dS, Bm)
+    dB = torch.einsum("cqk,cqn->ckn", dS, Cm)
+    dx = torch.einsum("chqk,cqhp->ckhp", M, dy)
+    del L, SL, M, dM, G, dS
+    # state = sum_j B_j x_j^T w_j
+    wexp = torch.exp(cum[:, -1:, :] - cum)  # [BC, Q, H]
+    w = wexp * dt
+    t = torch.einsum("chpn,ckhp->ckhn", dstate, xm)
+    dB = dB + torch.einsum("ckhn,ckh->ckn", t, w)
+    dw = torch.einsum("ckhn,ckn->ckh", t, Bm)
+    dx = dx + torch.einsum("chpn,ckn->ckhp", dstate, Bm) * w[..., None]
+    ddt = ddt + dw * wexp
+    gw = dw * w
+    dcum = dcum - gw
+    dcum[:, -1, :] += gw.sum(dim=1) + dcdecay * torch.exp(cum[:, -1, :])
+    return dx.to(x.dtype), dcum, ddt, dB.to(B_.dtype), dC.to(C_.dtype)
 
 
 def route(dtype: torch.dtype, Q: int, P: int, N: int, *, bf16_intra: bool = False) -> str:
@@ -212,3 +274,5 @@ def ssd_intra(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
 
 ssd_intra.launches = 0
 ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+# calls of :func:`ssd_intra_bwd` through the autograd op (``ops.py``)
+ssd_intra.backward_calls = 0

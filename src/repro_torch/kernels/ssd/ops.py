@@ -9,12 +9,41 @@ token inter-chunk output, in torch.  ``y_intra`` stays float32 until the
 one final rounding to ``x.dtype``, as in ``_ssd_chunked`` (the Pallas op
 rounds it to ``x.dtype`` first).  The Mamba-2 mixer (``models/mamba.py``)
 calls this op.
+
+The op is differentiable: the intra-chunk step is a
+``torch.autograd.Function`` whose forward is the wrapper and whose
+backward is :func:`~repro_torch.kernels.ssd.kernel.ssd_intra_bwd`, on every
+device; the rest of the scan is torch ops.  Each backward adds one to
+``ssd_intra.backward_calls``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssd.kernel import ssd_intra
+from repro_torch.kernels.ssd.kernel import ssd_intra, ssd_intra_bwd
+
+
+class SSDIntra(torch.autograd.Function):
+    """The intra-chunk step (the kernel, or the plain version for CPU
+    tensors), with :func:`ssd_intra_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, cum, dt, B_, C_, bf16_intra):
+        out = ssd_intra(x, cum, dt, B_, C_, bf16_intra=bf16_intra)
+        ctx.bf16_intra = bf16_intra
+        ctx.save_for_backward(x, cum, dt, B_, C_)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstate, dcdecay):
+        ssd_intra.backward_calls += 1
+        grads = ssd_intra_bwd(*ctx.saved_tensors, dy, dstate, dcdecay, bf16_intra=ctx.bf16_intra)
+        return (*grads, None)
+
+
+def ssd_intra_op(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
+    """:func:`~repro_torch.kernels.ssd.kernel.ssd_intra` with its gradient."""
+    return SSDIntra.apply(x, cum, dt, B_, C_, bf16_intra)
 
 
 def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int, bf16_intra: bool, intra):
@@ -62,4 +91,4 @@ def ssd_chunked(x, dt, A, B_, C_, D, *, chunk: int = 128, bf16_intra: bool = Fal
     ``min(chunk, S)``.  On CUDA tensors the intra-chunk step launches the
     kernel :func:`~repro_torch.kernels.ssd.kernel.route` names (the
     tensor-core kernel for bfloat16 operands and for ``bf16_intra``)."""
-    return ssd_scan(x, dt, A, B_, C_, D, chunk=chunk, bf16_intra=bf16_intra, intra=ssd_intra)
+    return ssd_scan(x, dt, A, B_, C_, D, chunk=chunk, bf16_intra=bf16_intra, intra=ssd_intra_op)

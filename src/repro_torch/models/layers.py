@@ -11,6 +11,7 @@ the reference.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -21,12 +22,62 @@ COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm scaled by ``(1 + w)`` (norm weights are zero-initialised):
-    the forward of the reference's ``_rmsnorm_fwd``, in float32."""
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm scaled by ``(1 + w)`` (norm weights are zero-initialised),
+    in float32, differentiated by autograd through its ops: the
+    reference's ``REPRO_RMSNORM=ref`` baseline, with the same values as
+    :func:`rmsnorm_fused`."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def _rmsnorm_fwd(x, w, eps):
     xf = x.float()
     rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * rstd * (1.0 + w.float())).to(x.dtype)
+    return (xf * rstd * (1.0 + w.float())).to(x.dtype), rstd
+
+
+def _rmsnorm_bwd(x, w, rstd, g):
+    xf = x.float()
+    xhat = xf * rstd
+    gw = g.float() * (1.0 + w.float())
+    mean_gx = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (gw - xhat * mean_gx)
+    dw = (g.float() * xhat).sum(dim=tuple(range(x.ndim - 1)))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNormFused(torch.autograd.Function):
+    """The reference's ``rmsnorm_fused`` custom VJP: float32 math stays
+    inside the op, and both cotangents leave in the storage dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y, rstd = _rmsnorm_fwd(x, w, eps)
+        ctx.save_for_backward(x, w, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, rstd = ctx.saved_tensors
+        dx, dw = _rmsnorm_bwd(x, w, rstd, g)
+        return dx, dw, None
+
+
+def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with the hand-written backward (``_rmsnorm_bwd``)."""
+    return _RMSNormFused.apply(x, w, eps)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's dispatcher: ``REPRO_RMSNORM=ref`` selects the
+    plain-autodiff :func:`rmsnorm_ref`; the default is :func:`rmsnorm_fused`.
+    Both forwards compute the same values."""
+    if os.environ.get("REPRO_RMSNORM", "fused") == "ref":
+        return rmsnorm_ref(x, w, eps)
+    return rmsnorm_fused(x, w, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Model assembly: parameter specs, init and forward for the LM scaffold.
+"""Model assembly: parameter specs, init, forward and loss for the LM scaffold.
 
 Port of ``repro/models/model.py`` for one device.  Parameters are nested
 dicts of tensors in the reference's tree: per-layer tensors stacked on a
@@ -14,6 +14,10 @@ dense, MoE, ssm and hybrid families, GQA and MLA attention, and the audio
 (precomputed frame features in place of the embedding) and vision (patch
 embeddings prepended to the embedded tokens) frontends.
 
+Training runs :func:`loss_fn` with each layer (the hybrid: each group of
+layers and its shared block) recomputed in the backward, as the
+reference's ``jax.checkpoint`` of its scanned unit.
+
 Vocab padding: the embedding and lm_head vocab dims are padded to a
 multiple of 512 (for vocabularies of 8,192 and more), and padded logits
 are set to -1e30, as in the reference.
@@ -21,18 +25,24 @@ are set to -1e30, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.attention import attention_block
 from repro_torch.models.mamba import mamba_block
-from repro_torch.models.moe import moe_block
 
+AUX_LOSS_COEF = 0.01
 VOCAB_PAD = 512
 
 
@@ -279,7 +289,7 @@ def ffn_block(x, p, cfg: ModelConfig):
     loss, or None for an MLP)."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        mo, aux = moe_block(h, p["moe"], cfg)
+        mo, aux = moe.moe_block(h, p["moe"], cfg)
         return x + mo, aux
     return x + L.swiglu_mlp(h, p["mlp"]), None
 
@@ -319,28 +329,138 @@ def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
+def _layer(x, aux, lp, i, shared, cfg: ModelConfig, positions):
+    """Layer ``i`` (and the hybrid's shared block where it follows)."""
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family in ("ssm", "hybrid"):
+        x = x + mamba_block(h, lp["mamba"], cfg)
+        if shared_after(cfg, i):
+            x = apply_shared_block(x, shared, cfg, positions)
+        return x, aux
+    x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg)
+    return x, aux if a is None else aux + a
+
+
+def units(cfg: ModelConfig) -> list:
+    """The layers of each unit that training recomputes as one (the
+    reference's scanned unit): one layer; for the hybrid family a group of
+    ``shared_attn_every`` mamba layers and the shared block after it, as
+    ``_group_blocks`` groups them (layers past the last whole group, which
+    no registered config has, are units of one)."""
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 1
+    whole = cfg.num_layers - cfg.num_layers % every
+    return [list(range(i, i + every)) for i in range(0, whole, every)] + \
+        [[i] for i in range(whole, cfg.num_layers)]
+
+
+# matmuls without batch dims: what ``REPRO_REMAT=dots`` keeps through the
+# recompute (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _recompute_context():
+    """The reference's ``REPRO_REMAT`` policy: ``"nothing"`` (the default)
+    saves nothing of a unit for its backward, ``"dots"`` saves the outputs
+    of its matmuls without batch dims."""
+    remat = os.environ.get("REPRO_REMAT", "nothing")
+    if remat == "nothing":
+        return noop_context_fn
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    raise ValueError(f"REPRO_REMAT must be 'nothing' or 'dots', got {remat!r}")
+
+
+def _count_once(fn):
+    """``fn`` for ``checkpoint``: its first call is the forward; a later
+    call is the backward's recompute, whose MoE drops were counted
+    already."""
+    ran = []
+
+    def run(*args):
+        if not ran:
+            ran.append(True)
+            return fn(*args)
+        with moe.drops_not_counted():
+            return fn(*args)
+
+    return run
+
+
 def forward(params: dict, inputs: dict, cfg: ModelConfig, *, last_only: bool = False):
     """-> (logits [B, S, V_pad] float32, aux loss float32: the MoE layers'
     load-balance losses summed, 0 without MoE).  ``inputs`` as
     :func:`embed_inputs` reads them (``launch/inputs.py::make_inputs``
     makes them); positions run over the whole sequence, patches included.
     ``last_only`` computes the final position's logits only (the
-    serving-prefill shape).  Activations run in ``layers.COMPUTE_DTYPE``."""
+    serving-prefill shape).  Activations run in ``layers.COMPUTE_DTYPE``.
+
+    With grad enabled each unit (:func:`units`) runs under
+    ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+    reference's ``jax.checkpoint`` of its scanned unit: its activations are
+    recomputed in the backward, kernels included, as ``REPRO_REMAT`` says.
+    The stacked leaves are split with ``torch.unbind``, so each one's
+    gradient is assembled once.  Without grad the layers run one after
+    another, nothing else."""
     x = embed_inputs(params, inputs, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared")
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.family in ("ssm", "hybrid"):
-            x = x + mamba_block(h, lp["mamba"], cfg)
-            if shared_after(cfg, i):
-                x = apply_shared_block(x, shared, cfg, positions)
-        else:
-            x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg)
-            if a is not None:
-                aux = aux + a
+    if torch.is_grad_enabled():
+        per_layer = _unbind_layers(params["blocks"], cfg.num_layers)
+        context_fn = _recompute_context()
+        for unit in units(cfg):
+            def run(x, aux, unit=unit):
+                for i in unit:
+                    x, aux = _layer(x, aux, per_layer[i], i, shared, cfg, positions)
+                return x, aux
+
+            x, aux = checkpoint(_count_once(run), x, aux, use_reentrant=False,
+                                context_fn=context_fn)
+    else:
+        for i in range(cfg.num_layers):
+            x, aux = _layer(x, aux, layer_params(params["blocks"], i), i, shared, cfg, positions)
     if last_only:
         x = x[:, -1:, :]
     return lm_logits(x, params, cfg), aux
+
+
+def _unbind_layers(blocks: dict, n: int) -> list:
+    """The stacked ``blocks`` tree as ``n`` per-layer trees, one
+    ``torch.unbind`` a leaf."""
+    out = [{} for _ in range(n)]
+
+    def split(tree, dsts):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                split(v, [d.setdefault(k, {}) for d in dsts])
+            else:
+                for d, t in zip(dsts, torch.unbind(v)):
+                    d[k] = t
+
+    split(blocks, out)
+    return out
+
+
+def loss_fn(params: dict, inputs: dict, cfg: ModelConfig):
+    """Mean cross-entropy over ``labels >= 0`` plus ``AUX_LOSS_COEF`` times
+    the MoE aux loss.  Returns ``(loss, {"ce", "aux", "ntok"})``.  For the
+    vision frontend the labels are padded with ``vis_tokens`` of -1 in
+    front, for the patches."""
+    logits, aux = forward(params, inputs, cfg)
+    labels = inputs["labels"].long()
+    if cfg.frontend == "vision":
+        pad = torch.full((labels.shape[0], cfg.vis_tokens), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = torch.where(mask, lse - gold, 0.0)
+    ntok = torch.clamp(mask.sum(), min=1)
+    loss = ce.sum() / ntok
+    return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux, "ntok": ntok}

@@ -25,9 +25,12 @@ Decode runs the block on one token a sequence, so there T is the batch and
 the capacity is ``int(B*K/E * capacity_factor) + 1``: 1 for deepseek-v2 at
 B = 4.  Assignments that collide then drop, as in the reference.
 :func:`dropped_assignments` counts them, summed over calls since
-:func:`reset_dropped` (a diagnostic, not a result).
+:func:`reset_dropped` (a diagnostic, not a result); a training step's
+recompute of a layer does not count them again (:func:`drops_not_counted`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,19 @@ _dropped: dict = {}
 
 def reset_dropped() -> None:
     _dropped.clear()
+
+
+@contextlib.contextmanager
+def drops_not_counted():
+    """Leave the dropped counts as they were on entering: a training step's
+    recompute of a unit runs its MoE layers a second time, and their drops
+    count once."""
+    saved = dict(_dropped)
+    try:
+        yield
+    finally:
+        _dropped.clear()
+        _dropped.update(saved)
 
 
 def dropped_assignments() -> int:

@@ -21,7 +21,15 @@ and B * w to bf16 wgmma as three bfloat16 parts whose sum is exact, and
 stays within 1e-4 too, and 5e-2 under ``bf16_intra``, the bar of the
 reference's own bfloat16 mode); a reduced model served on the card
 against the same run on the CPU within 5e-2 in its logits (bfloat16
-activations, the reference's decode-vs-forward bar).
+activations, the reference's decode-vs-forward bar).  Training: both
+kernels' autograd ops (kernel forward, torch-ops backward) against autograd
+through the plain versions in float32 (3e-2 relative L2 for bfloat16
+attention; 1e-4 for the SSD step, its bfloat16 operands' gradients, which
+the op and the scan each round once as the reference's autodiff does,
+within two bfloat16 roundings (2^-7), 5e-2 under ``bf16_intra``; dA, a sum of
+cancelling terms at a decay past 88, 1e-2), and a reduced model's
+gradients on the card, every leaf finite and nonzero, within 5e-2 of the
+CPU's.
 """
 import numpy as np
 import pytest
@@ -57,6 +65,7 @@ def cuda():
     tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     tattn.flash_attention_kernel.copies = 0
     tssd.ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+    tattn.flash_attention_kernel.backward_calls = tssd.ssd_intra.backward_calls = 0
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -661,6 +670,119 @@ def test_reduced_frontend_forward_on_the_card_equals_cpu(cuda, arch):
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# training: the two kernels' gradients and a reduced model's on the card
+# ---------------------------------------------------------------------------
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _vjp(fn, args, cots):
+    args = [a.detach().clone().requires_grad_() for a in args]
+    outs = fn(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(sum((o.float() * c).sum() for o, c in zip(outs, cots)), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,causal,tol", [
+    ((2, 512, 8, 8, 80), torch.bfloat16, True, 3e-2),     # zamba2's heads, wgmma
+    ((2, 300, 8, 2, 128), torch.bfloat16, True, 3e-2),    # granite's GQA, ragged
+    ((1, 256, 4, 4, 192), torch.bfloat16, False, 3e-2),   # MLA's head dim, CUDA cores
+    ((2, 200, 4, 2, 64), torch.float32, True, 1e-4),      # float32, CUDA cores
+])
+def test_flash_attention_backward_on_the_card(cuda, shape, dtype, causal, tol):
+    """The autograd op's gradient (the kernel forward, ``flash_attention_bwd``)
+    against autograd through the plain version in float32, same inputs."""
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    B, S, H, KH, D = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=cuda).to(dtype)
+               for sh in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D)))
+    dout = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32), device=cuda)
+    got = _vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v), (dout,))
+    assert tattn.flash_attention_kernel.launches == 1
+    assert tattn.flash_attention_kernel.backward_calls == 1
+    want = _vjp(lambda q, k, v: tattn.flash_attention_plain(q, k, v, causal=causal),
+                [t.float() for t in (q, k, v)], (dout,))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= tol, _rel_l2(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bf16_intra,tol", [
+    (torch.bfloat16, False, 1e-4),   # wgmma
+    (torch.float32, False, 1e-4),    # CUDA cores
+    (torch.float32, True, 5e-2),     # wgmma, bf16_intra
+])
+def test_ssd_backward_on_the_card(cuda, dtype, bf16_intra, tol):
+    """``ssd_chunked``'s gradient through the intra-chunk op (the kernel
+    forward, ``ssd_intra_bwd``) against autograd through the plain scan in
+    float32, at a decay that overflows the unmasked exponential."""
+    rng = np.random.default_rng(1)
+    B, S, H, P, N = 2, 256, 16, 64, 64
+    f = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)  # noqa: E731
+    x, Bm, Cm = (f(rng.normal(size=sh)).to(dtype) for sh in ((B, S, H, P), (B, S, 1, N), (B, S, 1, N)))
+    dt = f(rng.uniform(1e-3, 1e-1, size=(B, S, H)))
+    A = -f(rng.uniform(1.0, 16.0, size=H))
+    A[0] = -60.0  # a decay span past 88 inside a chunk
+    D = f(rng.normal(size=H))
+    # y comes out in x's dtype, so its cotangent enters in that dtype: both
+    # runs get it rounded so
+    cots = (f(rng.normal(size=(B, S, H, P))).to(dtype).float(), f(rng.normal(size=(B, H, P, N))))
+    got = _vjp(lambda *a: tssd_ops.ssd_chunked(*a, chunk=128, bf16_intra=bf16_intra),
+               (x, dt, A, Bm, Cm, D), cots)
+    assert tssd.ssd_intra.launches == 1 and tssd.ssd_intra.backward_calls == 1
+    want = _vjp(lambda *a: tssd_ref.ssd_chunked(*a, chunk=128, bf16_intra=bf16_intra),
+                [t.float() for t in (x, dt, A, Bm, Cm, D)], cots)
+    for name, g, w in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        bar = max(tol, 1e-2) if name == "A" else tol
+        if g.dtype == torch.bfloat16:
+            # the op hands its cotangent of x, B, C on in their dtype and the
+            # scan adds the skip term's, as the reference's autodiff rounds
+            # each use's cotangent: two bfloat16 roundings, 2^-7
+            bar = max(bar, 2.0 ** -7)
+        assert _rel_l2(g, w) <= bar, (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-8b", "mamba2-1.3b", "zamba2-2.7b", "deepseek-v2-236b"])
+def test_reduced_lm_gradients_on_the_card(cuda, arch):
+    """One ``loss_and_grads`` on the card: every leaf finite and nonzero
+    (no leaf left without a gradient by a kernel's output), loss within
+    5e-2 of the CPU's and each leaf within 5e-2 relative L2 (bfloat16
+    activations); the kernels launched forward and recomputed."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.inputs import make_inputs
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, 0, "cpu")
+    inputs = make_inputs(cfg, SHAPES["train_4k"].reduced(), seed=0, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        moe.reset_dropped()
+        loss, _, grads = loss_and_grads(_to(params, dev), _to(inputs, dev), cfg)
+        runs[str(dev)] = (float(loss), [g.cpu() for g in leaves(grads)], moe.dropped_assignments())
+    (loss_c, g_c, drop_c), (loss_g, g_g, drop_g) = runs["cpu"], runs[str(cuda)]
+    assert abs(loss_g - loss_c) <= 5e-2 and drop_g == drop_c
+    for g, w in zip(g_g, g_c):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+        assert _rel_l2(g, w) <= 5e-2
+    if cfg.family != "ssm":
+        assert tattn.flash_attention_kernel.launches == 2 * (cfg.num_layers if cfg.family != "hybrid"
+                                                             else cfg.num_layers // cfg.shared_attn_every)
+    if cfg.family in ("ssm", "hybrid"):
+        assert tssd.ssd_intra.launches == 2 * cfg.num_layers
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 ``examples/torch_quickstart.py`` and ``examples/torch_find_another_me.py``
 run with ``main(device="cpu")``; their output must be the JAX examples'
 line for line (the quickstart's phase-times line aside), ending in
-``QA1 = 1.000  QA2 = 1.000`` and in Carol's line.
+``QA1 = 1.000  QA2 = 1.000`` and in Carol's line.  ``examples/
+torch_serve_lm.py`` and ``examples/torch_train_lm.py`` (at a few steps)
+run on the CPU and are held to the JAX examples' lines where the random
+weights do not enter.
 """
 import contextlib
 import importlib.util
@@ -11,6 +14,7 @@ import io
 import os
 
 import pytest
+import torch
 
 from conftest import REPO
 
@@ -65,3 +69,30 @@ def test_torch_serve_lm_example():
                 f"cache={cache_bytes(cfg, 4, 64) / 1e6:7.2f}MB  prefill=")
         assert line.startswith(want), (line, want)
         assert "ms/tok  sample=[" in line
+
+
+def test_torch_train_lm_example(tmp_path):
+    """``examples/torch_train_lm.py`` on the CPU at a few steps, on the
+    reduced granite-3-8b without dedup (tiny-100m's 66.6M parameters cost
+    the parallel CPU suite minutes, and a 512-token vocabulary is under the
+    3,000 SSH dedup's ``vocab_forest`` needs; ``chip_smoke.py`` runs the
+    example's own tiny-100m with SSH dedup on the card), a corpus small
+    enough that batches repeat: the loss falls, the last step's checkpoint
+    is written, and the JAX example's closing line is printed.  torch runs
+    on one thread beside the suite's other workers."""
+    argv = ["--arch", "granite-3-8b", "--reduced", "--dedup", "none", "--steps", "6",
+            "--num-docs", "16", "--seq-len", "64", "--global-batch", "4", "--lr", "1e-3",
+            "--warmup", "2", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    out = io.StringIO()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(out):
+            result = _main("torch_train_lm")(argv)
+    finally:
+        torch.set_num_threads(threads)
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith("arch=granite-3-8b params=")
+    assert lines[-1] == "training improved the loss ✓"
+    assert len(result["losses"]) == 6
+    assert (tmp_path / "step_0000000006" / "MANIFEST.json").is_file()
