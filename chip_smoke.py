@@ -252,10 +252,31 @@ phases, and exits non-zero if any phase fails:
    SSH dedup, 16 steps): the loss falls; a resume from its checkpoint
    runs only the remaining 4 steps.
 
+27. lm deepseek-v2 ep — deepseek-v2-236b at published widths, 2 of 60
+   layers, on (1, 2) and (2, 2) meshes of the card (``devices=(card,) *
+   n``): 4 prompts of 2,048 tokens and 8 decode steps; the (1, 2) run held
+   to the one-device run (routing equal wherever a layer's input is, the
+   logits of the requests routed alike within 5e-2), the (2, 2) run (each
+   data shard at its own capacity) to the same mesh's plain-version path;
+   drops counted; every dispatch reads the one stacked copy of the experts.
+28. train zamba2 dp — zamba2-2.7b's first group at published widths, 2
+   steps of 4 x 4,096 tokens data parallel on a (2, 1) mesh of the card
+   against the one-device step: losses within 5e-2, parameters and first
+   moments within 5e-2 relative L2.
+29. dryrun — ``launch/dryrun.py``: every (arch x shape x mesh) cell
+   derived on ``meta`` meshes of 256 and 512 ranks, and one cell a family
+   measured on the card at one layer period (peak memory, device time by
+   kernel kind).
+30. perf variants — ``launch/perf.py``: every variant's derived terms; the
+   zamba2 variants trained at one group on the card with each knob set,
+   the kimi-k2 variants derived only (a layer's training state is past
+   80 GB), the AnotherMe variants at N = 1,048,576, L = 16 on 4 shards.
+
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path is driven and read just after, and a path whose kernel was
 never launched fails.  #6's and #7's entries also carry their training
-launches (``launches_training``) and gradient figures (``training``).  The
+launches (``launches_training``) and gradient figures (``training``), and
+their launches on the mesh phases (``launches_mesh``).  The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3362,49 +3383,19 @@ def phase_lm_small(torch, dev):
         hold(arch, cfg, got, want, counts, f"forward over {cfg.frontend} inputs {shapes}")
 
 
-def _kernel_kind(name):
-    n = name.lower()
-    if "flash_fwd" in n:
-        return "flash_attention (#6)"
-    if "ssd_intra" in n:
-        return "ssd_intra (#7)"
-    if any(w in n for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk", "sm90_")):
-        return "matmul (cuBLAS)"
-    if any(w in n for w in ("copy", "memcpy", "memset", "fill")):
-        return "copies and casts"
-    if "reduce" in n:
-        return "reductions"
-    return "elementwise and other"
-
-
 def _profiled_split(torch, fn, tag, top=8):
-    """Run ``fn`` under ``torch.profiler`` (the device's activity alone: a
-    training step runs ~10^5 host ops) and log the host wall, the device's
-    busy and idle shares, the device time by kernel kind and the ``top``
-    kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn`` under ``torch.profiler`` (``launch/roofline.py::
+    profile_device``) and log the host wall, the device's busy and idle
+    shares, the device time by kernel kind and the ``top`` kernels by
+    device time."""
+    from repro_torch.launch.roofline import profile_device
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by, names = {}, {}
-    # the raw device events: ``prof.events()`` would first build every
-    # event's Python record (~0.1 ms an event, ~10^5 events a training step)
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            k, ms = _kernel_kind(e.name()), e.duration_ns() / 1e6
-            by[k] = by.get(k, 0.0) + ms
-            names[e.name()] = names.get(e.name(), 0.0) + ms
-    busy = sum(by.values())
+    prof = profile_device(fn, torch.device("cuda"), top=top)
+    wall, busy, by = prof["wall_ms"], prof["busy_ms"], prof["device_ms_by_kind"]
     check(busy > 0, f"{tag}: the profiler saw no device time")
     parts = ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
-    parts += "; top kernels: " + ", ".join(
-        f"{n[:80]} {v:.1f} ms" for n, v in sorted(names.items(), key=lambda kv: -kv[1])[:top])
+    parts += "; top kernels: " + ", ".join(f"{n[:80]} {v:.1f} ms" for n, v in prof["top_kernels"])
     log(f"{tag} (profiled): host wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%): {parts}")
 
@@ -3443,8 +3434,8 @@ class _Routing:
 
         self.calls, self.real = [], moe.route
 
-        def spy(x_flat, router_w, cfg):
-            r = self.real(x_flat, router_w, cfg)
+        def spy(x_flat, router_w, cfg, **kw):
+            r = self.real(x_flat, router_w, cfg, **kw)
             lost = torch.zeros(x_flat.shape[0], dtype=torch.bool, device=x_flat.device)
             lost[r["order"][~r["kept"]] // cfg.experts_per_token] = True
             self.calls.append((r["experts"].sort(dim=-1).values.cpu(), lost.cpu()))
@@ -4364,6 +4355,409 @@ def phase_train(torch, dev, entries):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the LM on multi-axis meshes of the one card: expert and data parallelism,
+# the dry-run and the perf variants
+# ---------------------------------------------------------------------------
+MESH_EP_LAYERS, MESH_EP_STEPS = 2, 8
+# (request, forward) pairs of the 4 x 9 that may be left out of the logits
+# comparison for routing otherwise (a near-tied expert after a bf16 psum)
+MESH_EP_MAX_LEFT_OUT = 2
+
+
+class _RouterInputs:
+    """Records every MoE layer's routing of each data shard, on the host:
+    the rows routed, each token's experts (in top-k order) and which of its
+    assignments were kept (the model ranks' kept assignments together; a
+    layer's calls for one data shard come one a model rank, rank 0
+    first)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.calls, self.real = [], moe.route
+
+        def spy(x_flat, router_w, cfg, **kw):
+            r = self.real(x_flat, router_w, cfg, **kw)
+            rank, tp = kw.get("rank", 0), kw.get("tp", 1)
+            T, K = r["experts"].shape
+            local = r["experts"].reshape(-1) // (cfg.num_experts // tp) == rank
+            kept = torch.zeros(T * K, dtype=torch.bool, device=x_flat.device)
+            kept[r["order"]] = r["kept"]
+            kept = (kept & local).reshape(T, K).cpu()
+            if rank == 0:
+                self.calls.append([x_flat.cpu(), r["experts"].cpu(), kept])
+            else:
+                self.calls[-1][2] |= kept
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.real
+
+
+class _ExpertStorage:
+    """Records the storage of every expert weight a dispatch reads."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.ptrs, self.real = set(), moe.dispatch_compute
+
+        def spy(x_flat, router_w, w_gate, w_up, w_down, cfg, **kw):
+            self.ptrs |= {w.untyped_storage().data_ptr() for w in (w_gate, w_up, w_down)}
+            return self.real(x_flat, router_w, w_gate, w_up, w_down, cfg, **kw)
+
+        moe.dispatch_compute = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.dispatch_compute = self.real
+
+
+def _serve_on_mesh(torch, params, cfg, tokens, mesh, steps, teacher=None):
+    """Prefill ``tokens`` [B, S] and ``steps`` decode steps over ``mesh``
+    (greedy, or fed ``teacher`` [B, steps]); returns the logits of the
+    prefill and of each step (a list of [B, V]), the tokens fed, each
+    routing call's (inputs, experts), the dropped counts (prefill, the
+    steps), the launches and the seconds (prefill, decode)."""
+    from repro_torch.models import moe
+    from repro_torch.serve.serve_step import make_decode_step, prefill_with_cache
+
+    V = cfg.vocab_size
+    moe.reset_dropped()
+    with torch.inference_mode(), _RouterInputs() as routing:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, cache), counts = _counted(lambda: prefill_with_cache(
+            params, tokens, cfg, tokens.shape[1] + steps, mesh=mesh))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        dropped = [moe.dropped_assignments()]
+        out, fed = [logits[:, -1, :V].float()], []
+        step = make_decode_step(cfg, mesh)
+        tok = logits[:, -1:, :V].argmax(dim=-1)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if teacher is not None:
+                tok = teacher[:, i:i + 1]
+            fed.append(tok)
+            moe.reset_dropped()
+            ld, cache = step(params, cache, tok)
+            dropped.append(moe.dropped_assignments())
+            out.append(ld[:, -1, :V].float())
+            tok = ld[:, :, :V].argmax(dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return dict(logits=out, fed=torch.cat(fed, dim=1), routing=routing.calls, dropped=dropped,
+                counts=counts, seconds=(prefill_s, decode_s))
+
+
+def _routing_held(got, want, B, dp=1, inputs_equal=True):
+    """Routing against another run.  The calls come a layer at a time
+    (the prefill's, then each decode step's), one a data shard (``dp`` of
+    them, B / dp requests each).  With ``inputs_equal``: each call's
+    experts are equal wherever its input rows are (routing is a function
+    of the layer input).  Returns (rows with equal inputs, rows whose
+    inputs differed, for each forward (the prefill, then each step) the
+    requests whose last position went to the same experts and kept the
+    same assignments in every layer)."""
+    same_in, differ = 0, 0
+    per = B // dp
+    calls_per_forward = len(got) // (1 + MESH_EP_STEPS)
+    held = [set(range(B)) for _ in range(1 + MESH_EP_STEPS)]
+    for i, ((xg, eg, kg), (xw, ew, kw)) in enumerate(zip(got, want)):
+        if inputs_equal:
+            eq = (xg == xw).all(dim=-1)
+            check(_equal(eg[eq], ew[eq]), "routing differs on equal inputs")
+            same_in, differ = same_in + int(eq.sum()), differ + int((~eq).sum())
+        last = eg.shape[0] // per  # tokens a request in this call
+        for j in range(per):
+            t = (j + 1) * last - 1
+            if not (_equal(eg[t], ew[t]) and _equal(kg[t], kw[t])):
+                held[i // calls_per_forward].discard((i % dp) * per + j)
+    return same_in, differ, [sorted(h) for h in held]
+
+
+def _equal(a, b):
+    return bool((a == b).all())
+
+
+def _held_errors(got, want, held):
+    """Max |diff| of each forward's logits over its held requests (0 where
+    none is held), and over every request; rounded."""
+    held_err = [round(_max_err(g[h], w[h]), 4) if h else 0.0 for g, w, h in zip(got, want, held)]
+    return held_err, [round(_max_err(g, w), 4) for g, w in zip(got, want)]
+
+
+def phase_lm_ep(torch, dev):
+    """deepseek-v2-236b at published widths, 2 of its 60 layers (a layer's
+    160 experts are ~7.5 GB of bfloat16), served on meshes of the card:
+    4 prompts of 2,048 tokens, then 8 decode steps.  (1, 2): each model
+    rank holds 80 experts; held against the one-device run (``mesh=None``,
+    greedy; the mesh's steps fed its tokens): routing is equal wherever the
+    layer's input is (the first layer's everywhere; the ranks' partial
+    outputs are summed in bfloat16, as the reference's psum sums them, so a
+    later layer's input can differ by a rounding, and a near-tied expert
+    or a capacity boundary can then go the other way), at most
+    ``MESH_EP_MAX_LEFT_OUT`` of the 36 (request, forward) pairs route
+    otherwise, and the logits of every other one (its last position went
+    to the same experts and kept the same assignments in every layer) are
+    within 5e-2.  (2, 2): each
+    data shard (2 requests) routes at its own capacity; held the same way
+    against the same mesh's plain-version path (``_plain_kernels``); drops
+    counted.  Every dispatch reads the one stacked copy of the experts
+    (views: no copy per rank).  Returns the launches of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compat
+    from repro_torch.models.model import init_params
+
+    import numpy as np
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_layers=MESH_EP_LAYERS)
+    tag = f"lm deepseek-v2 ep ({MESH_EP_LAYERS} of 60 layers)"
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    experts = {params["blocks"]["moe"][k].untyped_storage().data_ptr() for k in ("w_gate", "w_up", "w_down")}
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+                             device=dev)
+    mesh = {s: compat.make_mesh(s, ("data", "model"), devices=(dev,) * (s[0] * s[1])) for s in ((1, 2), (2, 2))}
+    _serve_on_mesh(torch, params, cfg, tokens, None, 1)  # a warm-up: first-call costs
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = _serve_on_mesh(torch, params, cfg, tokens, None, MESH_EP_STEPS)
+    peak_one = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _ExpertStorage() as storage:
+        ep12 = _serve_on_mesh(torch, params, cfg, tokens, mesh[(1, 2)], MESH_EP_STEPS, teacher=one["fed"])
+        ep22 = _serve_on_mesh(torch, params, cfg, tokens, mesh[(2, 2)], MESH_EP_STEPS)
+    peak_mesh = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(storage.ptrs == experts, f"{tag}: a dispatch read an expert copy ({len(storage.ptrs)} storages, "
+          f"the stacked weights are {len(experts)})")
+    with _plain_kernels():
+        plain22 = _serve_on_mesh(torch, params, cfg, tokens, mesh[(2, 2)], MESH_EP_STEPS, teacher=ep22["fed"])
+    check(sum(plain22["counts"].values()) == 0, f"{tag}: the plain path launched {plain22['counts']}")
+    # (1, 2) against one device
+    same, differ, held12 = _routing_held(ep12["routing"], one["routing"], LM_BATCH)
+    first = one["routing"][0][0].shape[0]
+    check(_equal(ep12["routing"][0][0], one["routing"][0][0]), f"{tag}: the first layer's inputs differ")
+    err12, all12 = _held_errors(ep12["logits"], one["logits"], held12)
+    pairs = LM_BATCH * (1 + MESH_EP_STEPS)
+    left12 = pairs - sum(map(len, held12))
+    check(left12 <= MESH_EP_MAX_LEFT_OUT, f"{tag}: (1, 2) routed {left12} of {pairs} (request, forward) "
+          f"pairs otherwise than one device (at most {MESH_EP_MAX_LEFT_OUT}): held {held12}")
+    check(max(err12) <= LM_LOGITS_ATOL,
+          f"{tag}: (1, 2) logits vs one device over the requests routed alike {err12} (held {held12}; "
+          f"every request {all12}) > 5e-2")
+    # (2, 2) against its plain path
+    _, _, held22 = _routing_held(ep22["routing"], plain22["routing"], LM_BATCH, dp=2, inputs_equal=False)
+    err22, all22 = _held_errors(ep22["logits"], plain22["logits"], held22)
+    left22 = pairs - sum(map(len, held22))
+    check(left22 <= MESH_EP_MAX_LEFT_OUT, f"{tag}: (2, 2) routed {left22} of {pairs} (request, forward) "
+          f"pairs otherwise than its plain path (at most {MESH_EP_MAX_LEFT_OUT}): held {held22}")
+    check(max(err22) <= LM_LOGITS_ATOL,
+          f"{tag}: (2, 2) logits vs the plain path over the requests routed alike {err22} (held {held22}; "
+          f"every request {all22}) > 5e-2")
+    counts = {name: {k: r["counts"][k] for k in ("flash_attention_kernel", "ssd_intra")}
+              for name, r in (("mesh=None", one), ("(1, 2)", ep12), ("(2, 2)", ep22))}
+    check(all(c["flash_attention_kernel"] == MESH_EP_LAYERS for c in counts.values()),
+          f"{tag}: prefill launches {counts}")
+    log(f"{tag}: prefill {LM_BATCH} x {LM_PROMPT} tokens + {MESH_EP_STEPS} decode steps on one device "
+        f"{one['seconds'][0]:.3f} + {one['seconds'][1]:.3f} s, (1, 2) {ep12['seconds'][0]:.3f} + "
+        f"{ep12['seconds'][1]:.3f} s, (2, 2) {ep22['seconds'][0]:.3f} + {ep22['seconds'][1]:.3f} s; "
+        f"peak {peak_one:.2f} GiB one device, {peak_mesh:.2f} GiB over both meshes (the experts read "
+        f"from {len(storage.ptrs)} storages: no copy per rank); (1, 2) vs one device: the first layer's "
+        f"{first} router inputs equal and routed alike, {same} rows of every call with equal inputs "
+        f"routed alike, {differ} with inputs a bf16 rounding apart; logits max |diff| over the requests "
+        f"routed alike (same experts, same kept assignments, every layer) {err12}, held {held12} "
+        f"({left12} of {pairs} left out), over every request {all12}; drops {ep12['dropped']} vs "
+        f"{one['dropped']}; (2, 2) vs its plain path: held {held22} ({left22} of {pairs} left out), "
+        f"logits {err22}, every request {all22}; drops (capacity a data shard) {ep22['dropped']} vs "
+        f"plain {plain22['dropped']}; prefill launches {counts}")
+    return {k: v["flash_attention_kernel"] for k, v in counts.items()}
+
+
+def phase_train_dp(torch, dev, arch="zamba2-2.7b"):
+    """zamba2-2.7b at published widths, its first group (6 mamba layers and
+    the shared block), trained data parallel on a (2, 1) mesh of the card:
+    2 steps of 4 x 4,096 tokens (2 microbatches, each split over the 2
+    data ranks), against the one-device step from the same weights on the
+    same batch: each step's loss within 5e-2, the parameters within 5e-2
+    relative L2 and the first moments (0.1 of the clipped gradient) within
+    5e-2 relative L2 of the one-device step's (PR 25's LM bars); #6 and #7
+    launched on each data rank's rows (forward + recompute), the gradient
+    psum's bytes counted on the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import collective_bytes
+    from repro_torch.launch.train import make_mesh_for_devices
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig, make_train_state, make_train_step
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=full.shared_attn_every)
+    tag = f"train {arch} dp (its first group: {cfg.num_layers} mamba layers + the shared block)"
+    batch = _train_batch(torch, dev, cfg.vocab_size)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1), grad_accum=TRAIN_ACCUM)
+    mesh = make_mesh_for_devices(devices=(dev,) * 2)
+    runs = {}
+    for name, m in (("one device", None), ("(2, 1)", mesh)):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        state, step = make_train_state(params, tcfg), make_train_step(cfg, tcfg, m)
+        losses, secs, counts = [], [], None
+        if m is not None:
+            m.reset_collective_bytes()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (params, state, met), counts, _ = _counted_train(lambda: step(params, state, batch))
+            losses.append(float(met["loss"]))
+            secs.append(time.perf_counter() - t0)
+        runs[name] = dict(params=params, state=state, losses=losses, secs=secs,
+                          counts={k: counts[k] for k in ("flash_attention_kernel", "ssd_intra")})
+    one, dp = runs["one device"], runs["(2, 1)"]
+    # a launch a unit's forward and one its recompute, a microbatch (a data
+    # rank's rows of it, on the mesh)
+    per_step = {"flash_attention_kernel": 2 * TRAIN_ACCUM, "ssd_intra": 2 * TRAIN_ACCUM * cfg.num_layers}
+    for name, r in runs.items():
+        want = {k: v * (mesh.size if name == "(2, 1)" else 1) for k, v in per_step.items()}
+        check(r["counts"] == want, f"{tag}: {name} step launches {r['counts']}, expected {want}")
+    dl = [abs(a - b) for a, b in zip(dp["losses"], one["losses"])]
+    check(max(dl) <= LM_LOGITS_ATOL, f"{tag}: losses {dp['losses']} vs one device {one['losses']}")
+    flat = lambda t: torch.cat([x.float().flatten() for x in _all_leaves(t)])  # noqa: E731
+    p_err = _rel_l2(flat(dp["params"]), flat(one["params"]))
+    moments = lambda s: torch.cat([v["m"].flatten() for v in _moments(s["opt"]["moments"])])  # noqa: E731
+    m_err = _rel_l2(moments(dp["state"]), moments(one["state"]))
+    check(p_err <= TRAIN_GRAD_REL and m_err <= TRAIN_GRAD_REL,
+          f"{tag}: parameters {p_err}, first moments {m_err} relative L2 from the one-device step's")
+    coll = collective_bytes(mesh)
+    check(coll["bytes"]["all-reduce"] > 0, f"{tag}: no gradient psum was counted")
+    log(f"{tag}: 2 steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses (2, 1) {[round(v, 5) for v in dp['losses']]}, "
+        f"one device {[round(v, 5) for v in one['losses']]}; step seconds (2, 1) "
+        f"{[round(v, 3) for v in dp['secs']]}, one device {[round(v, 3) for v in one['secs']]}; parameters "
+        f"{p_err:.3g}, first moments {m_err:.3g} relative L2 from the one-device step's; launches a step "
+        f"{dp['counts']}; the mesh's collective bytes a rank {coll['bytes']}")
+    return dp["counts"]
+
+
+def _moments(tree):
+    out = []
+    for v in tree.values():
+        out.extend([v] if set(v) == {"m", "v"} else _moments(v))
+    return out
+
+
+def phase_dryrun(torch, dev, tmp):
+    """``launch/dryrun.py``: every cell derived on both production meshes
+    (``meta`` devices), and one cell a family measured on the card at one
+    layer period: granite-3-8b train_4k (dense), deepseek-v2-236b
+    decode_32k (MoE), mamba2-1.3b prefill_32k (ssm), zamba2-2.7b long_500k
+    (hybrid), hubert-xlarge prefill_32k (audio), internvl2-76b train_4k
+    (vision).  Returns the launches of the measured cells."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    records = dryrun.main(["--out", str(tmp / "dryrun.json")])
+    derive_s = time.perf_counter() - t0
+    runnable = sum(ok for _, _, ok, _ in dryrun.enumerate_cells())
+    check(len(records) == 2 * runnable and all(r["status"] == "ok" for r in records),
+          f"dryrun: {len(records)} records for {runnable} cells on 2 meshes")
+    measured, launches = {}, {}
+    for arch, sname in (("granite-3-8b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+                        ("mamba2-1.3b", "prefill_32k"), ("zamba2-2.7b", "long_500k"),
+                        ("hubert-xlarge", "prefill_32k"), ("internvl2-76b", "train_4k")):
+        rec, counts = _counted(lambda: dryrun.measure_cell(arch, sname, device=dev))
+        torch.cuda.empty_cache()
+        check(rec["busy_ms"] > 0, f"dryrun {arch} {sname}: no device time")
+        derived = next(r for r in records if (r["arch"], r["shape"], r["mesh"]) == (arch, sname, "16x16"))
+        measured[f"{arch} {sname}"] = {
+            "layers": rec["layers"], "batch": rec["batch"], "peak_gib": round(rec["peak_bytes"] / 2**30, 3),
+            "wall_ms": round(rec["wall_ms"], 3), "busy_ms": round(rec["busy_ms"], 3),
+            "by_kind_ms": {k: round(v, 3) for k, v in rec["device_ms_by_kind"].items()},
+            "derived_bound_s_256": derived["derived"]["roofline"]["step_time_bound_s"],
+            "derived_dominant_256": derived["derived"]["roofline"]["dominant"]}
+        launches[f"{arch} {sname}"] = {k: counts[k] for k in ("flash_attention_kernel", "ssd_intra")}
+    check(sum(c["flash_attention_kernel"] for c in launches.values()) > 0
+          and sum(c["ssd_intra"] for c in launches.values()) > 0, f"dryrun: launches {launches}")
+    log(f"dryrun: {len(records)} cell records derived in {derive_s:.2f} s (meta meshes of 256 and 512); "
+        f"measured at one layer period on the card: {json.dumps(measured)}; launches {launches}")
+    return launches
+
+
+def phase_perf(torch, dev, tmp):
+    """``launch/perf.py``: every variant's derived terms; the zamba2
+    variants' training step at one group on the card (8,192 tokens), each
+    knob set; the kimi-k2 variants derived only (their one-layer training
+    state is past the card); the AnotherMe variants at N = 1,048,576, L =
+    16 on 4 shards of the card.  Returns the launches of the measured
+    variants."""
+    from repro_torch.launch import perf
+
+    records, counts = _counted(lambda: perf.main(["--out", str(tmp / "perf.json"), "--device", str(dev)]))
+    torch.cuda.empty_cache()
+    check(all(r["status"] == "ok" for r in records), f"perf: {[(r['name'], r['status']) for r in records]}")
+    rows = {}
+    for r in records:
+        m = r.get("measured")
+        roof = (r["derived"].get("roofline") or {})
+        row = {"derived_bound_s": roof.get("step_time_bound_s"), "derived_dominant": roof.get("dominant")}
+        if m:
+            times = dict(wall_ms=round(m["wall_ms"], 3), busy_ms=round(m["busy_ms"], 3))
+            if "overflow (join, pair route, scored)" in m:
+                check(m["scored_pairs"] > 0, f"perf {r['name']}: no pair scored ({m})")
+                overflow = m["overflow (join, pair route, scored)"]
+                if m["capped"]:  # the plan's caps cut the work: not the variant's time
+                    times = {f"capped_program_{k}": v for k, v in times.items()}
+                row.update(overflow=overflow, collective_bytes=m["collective_bytes"], scored=m["scored_pairs"])
+            row.update(times, peak_gib=round(m["peak_bytes"] / 2**30, 3))
+        else:
+            check("not_measured" in r and r["name"].startswith("kimi"), f"perf {r['name']}: not measured")
+            row["not_measured"] = r["not_measured"]
+        rows[r["name"]] = row
+    launches = {k: counts[k] for k in ("flash_attention_kernel", "ssd_intra")}
+    check(all(launches.values()), f"perf: launches {launches}")
+    log(f"perf variants: {json.dumps(rows)}; launches {launches}")
+    return launches
+
+
+def phase_mesh(torch, dev, entries):
+    """The mesh phases (27-30); logs each phase's seconds and adds to #6's
+    and #7's entries their launches there (``launches_mesh``)."""
+    seconds, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("lm deepseek-v2 ep", lambda: phase_lm_ep(torch, dev)),
+                         ("train zamba2 dp", lambda: phase_train_dp(torch, dev)),
+                         ("dryrun", lambda: phase_dryrun(torch, dev, Path(tmp))),
+                         ("perf variants", lambda: phase_perf(torch, dev, Path(tmp)))):
+            t0 = time.perf_counter()
+            paths[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    by_name = {e["name"]: e for e in entries}
+    for name in ("flash_attention_kernel", "ssd_intra"):
+        if name not in by_name:  # the mesh phases run alone
+            by_name[name] = {"name": name}
+            entries.append(by_name[name])
+    ep = paths["lm deepseek-v2 ep"]
+    by_name["flash_attention_kernel"]["launches_mesh"] = {
+        **{f"lm deepseek-v2 ep prefill {k}": v for k, v in ep.items()},
+        "train zamba2 dp step": paths["train zamba2 dp"]["flash_attention_kernel"],
+        **{f"dryrun {k}": v["flash_attention_kernel"] for k, v in paths["dryrun"].items()},
+        "perf variants": paths["perf variants"]["flash_attention_kernel"]}
+    by_name["ssd_intra"]["launches_mesh"] = {
+        "train zamba2 dp step": paths["train zamba2 dp"]["ssd_intra"],
+        **{f"dryrun {k}": v["ssd_intra"] for k, v in paths["dryrun"].items()},
+        "perf variants": paths["perf variants"]["ssd_intra"]}
+    log(json.dumps({"mesh_phase_s": seconds}))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4522,6 +4916,8 @@ def main() -> int:
     entries += phase_lm(torch, dev, figures)
     torch.cuda.empty_cache()
     phase_train(torch, dev, entries)
+    torch.cuda.empty_cache()
+    phase_mesh(torch, dev, entries)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -20,7 +20,7 @@ from repro_torch.api.backends import (
 )
 from repro_torch.api.capacity import CapacityPlanner
 from repro_torch.api.engine import AnotherMeEngine, EngineConfig, EngineResult, ExecutionPlan
-from repro_torch.api.errors import CapacityExceeded, NotPortedError
+from repro_torch.api.errors import CapacityExceeded
 from repro_torch.api.instrumentation import Instrumentation
 from repro_torch.api.serving import QueryEngine, QueryPlan, QueryResult
 from repro_torch.api.sharded import (

@@ -57,7 +57,7 @@ from repro_torch.core.shingling import shingles_from_types
 from repro_torch.core.similarity import (
     PRUNE_EPS, gather_windows, mss_scores, mss_upper_bound, multi_level_lcs,
 )
-from repro_torch.core.ssh import _runs, dedup_pairs, pairs_from_rows
+from repro_torch.core.ssh import _runs, dedup_pairs, pairs_from_rows, saturate_int32
 from repro_torch.core.types import PAD_ID, PAD_KEY
 
 _MIX = np.int32(np.uint32(2654435761 % (1 << 31)))  # Knuth multiplicative mix
@@ -695,7 +695,7 @@ def make_sharded_pipeline(
             ovf5 = [sum(p[4][i] for p, _ in parts) for i in shards]
         level_lcs = [lv for lv, _ in scores]
         mss = [m.masked_fill(x == PAD_ID, -1.0) for (_, m), x in zip(scores, left)]
-        overflow = [torch.stack([ovf1[i] + ovf2[i], ovf3[i], ovf4[i] + ovf5[i]]).to(torch.int32)
+        overflow = [saturate_int32(torch.stack([ovf1[i].long() + ovf2[i], ovf3[i], ovf4[i] + ovf5[i]]))
                     for i in shards]
         return left, right, level_lcs, mss, overflow, [p.reshape(1) for p in n_pruned]
 

@@ -15,7 +15,9 @@ section IV.3).
 Capacity discipline: the pair buffer is a fixed ``pair_capacity``; if the
 true pair count exceeds it the join reports ``overflow`` and the planner
 retries with doubled capacity.  Buffers are bit-equal to the JAX package's
-(``left``, ``right``, ``count`` and ``overflow``), overflowing runs included.
+(``left``, ``right``, ``count`` and ``overflow``), overflowing runs included,
+up to 2**31 pre-dedup pairs; past that the reference's int32 slot count
+wraps and the port's (int64) does not.
 """
 from __future__ import annotations
 
@@ -47,12 +49,14 @@ def pairs_from_rows(
     ids = ids[order]
     rank, valid = _runs(keys)
     contrib = torch.where(valid, rank, 0)
-    # int32 like the reference (torch.cumsum would widen to int64)
-    excl = torch.cumsum(contrib, dim=0, dtype=torch.int32) - contrib
+    # int64 slots: the reference's int32 prefix sum wraps past 2**31 pairs
+    # (its total then reads as a small or negative count, and the join
+    # reports no overflow); below that the buffers are equal
+    excl = torch.cumsum(contrib, dim=0, dtype=torch.int64) - contrib
     total = excl[-1] + contrib[-1]
 
     n_rows = keys.shape[0]
-    p = torch.arange(pair_capacity, dtype=torch.int32, device=keys.device)
+    p = torch.arange(pair_capacity, dtype=torch.int64, device=keys.device)
     # int32 result: at a 2**28-slot buffer an int64 one costs 2 GB for nothing
     row = torch.searchsorted(excl, p, right=True, out_int32=True) - 1
     row = row.clamp_(0, n_rows - 1)
@@ -61,8 +65,13 @@ def pairs_from_rows(
     ok = p < total
     a = torch.where(ok, ids[row], PAD_ID)
     b = torch.where(ok, ids[partner], PAD_ID)
-    overflow = torch.clamp(total - pair_capacity, min=0)
+    overflow = saturate_int32(torch.clamp(total - pair_capacity, min=0))
     return torch.minimum(a, b), torch.maximum(a, b), overflow
+
+
+def saturate_int32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 count as int32, held at 2**31 - 1 instead of wrapping."""
+    return x.clamp(max=2**31 - 1).to(torch.int32)
 
 
 def ssh_candidates(

@@ -40,8 +40,8 @@ from repro_torch.core.types import PAD_KEY
 # probe work.  The index stays exact regardless (the warning never changes
 # results) — crossing this many members per bucket just surfaces a
 # RuntimeWarning, once per key, pointing at the quadratic wall and at
-# ``delta_join="device"``, where the JAX package shards the bucket state off
-# the host (not ported yet).
+# ``delta_join="device"``, where the bucket state lives in device slabs
+# (``core/device_index.py``), sharded with the world.
 HOT_BUCKET_WARN = 10_000
 
 
@@ -214,8 +214,8 @@ class BucketIndex:
         world, so the index is left untouched and concurrent queries
         commute with updates).  This is the host implementation of the
         read-only ``probe(keys)`` protocol that
-        ``probe_rows`` implements for the device-resident slab index of the JAX
-        package (not ported yet).
+        ``core/device_index.py::probe_rows`` implements for the
+        device-resident slab index.
 
         keys_np: int32 [Q, S] PAD_KEY-padded join keys of the Q query
         rows, exactly as the backend's ``join_keys`` builds them.

@@ -1,11 +1,11 @@
 """Model inputs of every architecture: shapes, specs and random tensors.
 
-Port of ``repro/launch/inputs.py`` for one device.  ``input_specs`` gives
-``ShapeDtype`` stand-ins (nothing is allocated); ``make_inputs``
-materialises random tensors of the same shapes from the reference's numpy
-draws, so that tokens and labels equal the reference's and the bfloat16
-features and patches are its bits.  The reference's ``input_shardings``
-waits for the sharding helpers.
+Port of ``repro/launch/inputs.py``.  ``input_specs`` gives ``ShapeDtype``
+stand-ins (nothing is allocated; with a mesh, each carries its placement:
+the batch over the dp axes, as ``input_shardings`` gives it);
+``make_inputs`` materialises random tensors of the same shapes from the
+reference's numpy draws, so that tokens and labels equal the reference's
+and the bfloat16 features and patches are its bits.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.core.compat import Placement
+from repro_torch.models.layers import COMPUTE_DTYPE, dp_axes, resolve_spec
 from repro_torch.models.model import ShapeDtype
 
 
@@ -42,9 +43,19 @@ def train_input_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     }
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """{name: ShapeDtype(shape, dtype)}."""
-    return {name: ShapeDtype(shp, dt) for name, (shp, dt) in train_input_shapes(cfg, shape).items()}
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> dict:
+    """{name: ShapeDtype(shape, dtype)}, with each input's placement on
+    ``mesh`` when one is given."""
+    places = input_shardings(cfg, shape, mesh) if mesh is not None else {}
+    return {name: ShapeDtype(shp, dt, places.get(name))
+            for name, (shp, dt) in train_input_shapes(cfg, shape).items()}
+
+
+def input_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """{name: ``core.compat.Placement``}: dim 0 (the batch) over the dp
+    axes when divisible, the rest whole."""
+    return {name: Placement(mesh, resolve_spec(mesh, shp, (dp_axes(mesh),) + (None,) * (len(shp) - 1)))
+            for name, (shp, _) in train_input_shapes(cfg, shape).items()}
 
 
 def make_inputs(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0, device=None) -> dict:

@@ -1,24 +1,31 @@
 """End-to-end training driver.
 
-Port of ``repro/launch/train.py`` for one device: the config registry, the
-SSH-dedup data pipeline, the train step (grad accumulation, optional int8
-error-feedback gradient compression), async atomic checkpoints with
-resume (onto any device: the elastic path) and the straggler watchdog.
+Port of ``repro/launch/train.py``: the config registry, the SSH-dedup
+data pipeline, the data-parallel train step on a ``(n, 1)`` ``("data",
+"model")`` mesh (grad accumulation, optional int8 error-feedback gradient
+compression), async atomic checkpoints with resume (onto any mesh and
+device: the reference's elastic reshard; checkpoints hold whole tensors)
+and the straggler watchdog.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-100m --steps 300
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b --reduced \\
         --steps 20 --ckpt-dir /tmp/ck --resume --device cpu
 
-The reference's flags, plus ``--device`` (default: the CUDA card).  The
-weights are drawn by the port's ``init_params`` (bfloat16, from
+The reference's flags, plus ``--device`` (default: the CUDA cards, one
+data rank each; with ``--device``, one rank there).  A caller may pass
+``train`` its own mesh (``make_mesh_for_devices(devices=(card,) * n)``
+runs n data ranks on one card).  The weights are drawn by the port's ``init_params`` (bfloat16, from
 ``--seed``), not the reference's draws.
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config
+from repro_torch.core import compat
 from repro_torch.core.device import resolve_device
 from repro_torch.data.tokens import TokenDataset, ssh_dedup, synthetic_corpus
 from repro_torch.models.model import init_params, param_count
@@ -41,13 +48,29 @@ def resolve_config(name: str, reduced: bool) -> ModelConfig:
     return cfg.reduced() if reduced else cfg
 
 
-def train(args) -> dict:
+def make_mesh_for_devices(n: int | None = None, *, devices=None) -> compat.ShardMesh:
+    """The reference's ``(n, 1)`` ``("data", "model")`` training mesh:
+    over ``devices`` when given (repeats allowed), else over the first
+    ``n`` CUDA devices (default: every one)."""
+    if devices is not None:
+        devices = tuple(devices)
+        n = len(devices)
+    else:
+        n = n or torch.cuda.device_count()
+    return compat.make_mesh((n, 1), ("data", "model"), devices=devices)
+
+
+def train(args, mesh=None) -> dict:
     """Train ``args.steps`` steps (from the last checkpoint with
-    ``--resume``); returns {"losses" (the steps run), "params", "state",
-    "straggler_events"}."""
+    ``--resume``) on ``mesh`` (default: :func:`make_mesh_for_devices`, or
+    one rank on ``--device``); returns {"losses" (the steps run),
+    "params", "state", "straggler_events"}."""
     cfg = resolve_config(args.arch, args.reduced)
     device = resolve_device(args.device)
-    print(f"arch={cfg.name} params={param_count(cfg)/1e6:.1f}M device={device}")
+    if mesh is None:
+        mesh = make_mesh_for_devices(devices=(device,) if args.device is not None else None)
+    print(f"arch={cfg.name} params={param_count(cfg)/1e6:.1f}M device={device} "
+          f"data ranks={mesh.size}")
 
     # ----- data (with the paper's SSH dedup) ------------------------------
     corpus, _ = synthetic_corpus(
@@ -76,9 +99,9 @@ def train(args) -> dict:
                                       device=device)
             params, state = tree["params"], tree["state"]
             start_step = last
-            print(f"resumed from step {last} (onto {device})")
+            print(f"resumed from step {last} (onto {device}, {mesh.size} data ranks)")
 
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, mesh if mesh.size > 1 else None)
     ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
     watchdog = StragglerWatchdog(
         threshold=args.straggler_threshold,
@@ -131,7 +154,7 @@ def build_parser():
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--straggler-threshold", type=float, default=8.0)
-    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA cards)")
     return ap
 
 

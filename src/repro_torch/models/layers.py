@@ -1,9 +1,14 @@
 """Shared model layers: norms, RoPE, attention entry point, MLP.
 
-Port of ``repro/models/layers.py`` for one device (the sharding helpers
-``shard``/``resolve_spec``/``dp_axes`` have no counterpart here).  Plain
-functions on tensors; parameters are nested dicts of tensors (see
-``models/model.py``).  Activations run in ``COMPUTE_DTYPE`` (bfloat16);
+Port of ``repro/models/layers.py``.  Plain functions on tensors;
+parameters are nested dicts of tensors (see ``models/model.py``).  The
+sharding helpers ``axis_size``, ``dp_axes`` and ``resolve_spec`` read a
+mesh's ``shape`` and ``axis_names`` as the reference's do (a
+``core.compat.ShardMesh``, or anything with those two attributes).  The
+reference's ``shard`` (a ``with_sharding_constraint`` for XLA's
+partitioner) has no counterpart: the port has no partitioner, and a
+layer's placement is what its caller gives it (``models/moe.py`` under a
+mesh; dense layers keep their one-device arithmetic).  Activations run in ``COMPUTE_DTYPE`` (bfloat16);
 each parameter is cast to the activation's dtype at its use, and the norm,
 softmax, RoPE and SiLU arithmetic runs in float32 and is cast back, as in
 the reference.
@@ -16,10 +21,51 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.compat import P
 from repro_torch.kernels.attention.ops import flash_attention
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+def axis_size(mesh, ax) -> int:
+    """The ranks along ``ax``: an axis name, a tuple of names (their
+    product) or None (1)."""
+    if ax is None:
+        return 1
+    if isinstance(ax, (tuple, list)):
+        return math.prod(mesh.shape[a] for a in ax)
+    return mesh.shape[ax]
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes: ``("pod", "data")`` on a multi-pod mesh."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def resolve_spec(mesh, shape, axes) -> P:
+    """The partition spec of a tensor of ``shape`` whose dims want
+    ``axes`` (each None, a name or a tuple of names): a name absent from
+    the mesh is dropped, and a dim not divisible by its axes' product is
+    not split, per dim, as the reference's resolver does."""
+    spec = []
+    for dim, ax in zip(shape, axes):
+        if ax is None:
+            spec.append(None)
+            continue
+        names = ax if isinstance(ax, (tuple, list)) else (ax,)
+        names = tuple(a for a in names if a in mesh.axis_names)
+        if not names:
+            spec.append(None)
+            continue
+        if dim % axis_size(mesh, names) == 0:
+            spec.append(names if len(names) > 1 else names[0])
+        else:
+            spec.append(None)
+    return P(*spec)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

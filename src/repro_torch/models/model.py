@@ -1,14 +1,16 @@
 """Model assembly: parameter specs, init, forward and loss for the LM scaffold.
 
-Port of ``repro/models/model.py`` for one device.  Parameters are nested
-dicts of tensors in the reference's tree: per-layer tensors stacked on a
-leading ``[L]`` axis under ``blocks`` (the hybrid's parameter-shared
-attention+MLP block under ``shared``), so a JAX parameter tree maps onto
-the port leaf for leaf (``interop.lm_params_from_numpy``).  Layers run in a
-Python loop over the stacked slices.
+Port of ``repro/models/model.py``.  Parameters are nested dicts of
+tensors in the reference's tree: per-layer tensors stacked on a leading
+``[L]`` axis under ``blocks`` (the hybrid's parameter-shared attention+MLP
+block under ``shared``), so a JAX parameter tree maps onto the port leaf
+for leaf (``interop.lm_params_from_numpy``).  Layers run in a Python loop
+over the stacked slices, on the weights' device; with a mesh the MoE
+layers run expert-parallel over it (:func:`forward`).
 
-Every leaf is declared once as a ``PS(shape, init, scale)`` spec (the
-reference's sharding axes have no counterpart here).  The spec tree is data
+Every leaf is declared once as a ``PS(shape, axes, init, scale)`` spec, the
+reference's partition axes included: ``param_shardings`` resolves them
+against a mesh (``core.compat.Placement`` leaves).  The spec tree is data
 for every registered architecture, and the forward pass runs all ten: the
 dense, MoE, ssm and hybrid families, GQA and MLA attention, and the audio
 (precomputed frame features in place of the embedding) and vision (patch
@@ -36,27 +38,35 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compat import Placement
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models.attention import attention_block
 from repro_torch.models.mamba import mamba_block
 
+FSDP = "data"      # parameter/optimizer sharding axis (ZeRO-3 style)
+TP = "model"       # tensor-parallel axis
 AUX_LOSS_COEF = 0.01
 VOCAB_PAD = 512
 
 
 @dataclasses.dataclass(frozen=True)
 class PS:
-    """Parameter spec: shape + init recipe."""
+    """Parameter spec: shape + partition axes + init recipe."""
     shape: tuple
+    axes: tuple
     init: str = "normal"
     scale: float = 0.02
 
 
 class ShapeDtype(NamedTuple):
+    """A tensor's shape and dtype (the counterpart of
+    ``jax.ShapeDtypeStruct``), with its ``core.compat.Placement`` where a
+    mesh was given."""
     shape: tuple
     dtype: torch.dtype
+    placement: Any = None
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -75,63 +85,64 @@ def _attn_specs(cfg: ModelConfig, nl: int) -> dict:
         dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         H = cfg.num_heads
         s: dict[str, PS] = {
-            "wkv_a": PS((nl, d, cfg.kv_lora_rank + dr)),
-            "kv_norm": PS((nl, cfg.kv_lora_rank), "zeros"),
-            "wk_b": PS((nl, cfg.kv_lora_rank, H * dn)),
-            "wv_b": PS((nl, cfg.kv_lora_rank, H * dv)),
-            "wo": PS((nl, H * dv, d), scale=wo_scale),
+            "wkv_a": PS((nl, d, cfg.kv_lora_rank + dr), (None, FSDP, None)),
+            "kv_norm": PS((nl, cfg.kv_lora_rank), (None, None), "zeros"),
+            "wk_b": PS((nl, cfg.kv_lora_rank, H * dn), (None, FSDP, TP)),
+            "wv_b": PS((nl, cfg.kv_lora_rank, H * dv), (None, FSDP, TP)),
+            "wo": PS((nl, H * dv, d), (None, TP, FSDP), scale=wo_scale),
         }
         if cfg.q_lora_rank:
-            s["wq_a"] = PS((nl, d, cfg.q_lora_rank))
-            s["q_norm"] = PS((nl, cfg.q_lora_rank), "zeros")
-            s["wq_b"] = PS((nl, cfg.q_lora_rank, H * (dn + dr)))
+            s["wq_a"] = PS((nl, d, cfg.q_lora_rank), (None, FSDP, None))
+            s["q_norm"] = PS((nl, cfg.q_lora_rank), (None, None), "zeros")
+            s["wq_b"] = PS((nl, cfg.q_lora_rank, H * (dn + dr)), (None, FSDP, TP))
         else:
-            s["wq"] = PS((nl, d, H * (dn + dr)))
+            s["wq"] = PS((nl, d, H * (dn + dr)), (None, FSDP, TP))
         return s
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    wo = PS((nl, H * hd, d), scale=wo_scale)
+    wo = PS((nl, H * hd, d), (None, TP, FSDP), scale=wo_scale)
     if cfg.fused_qkv:
-        s = {"wqkv": PS((nl, d, (H + 2 * KH) * hd)), "wo": wo}
+        s = {"wqkv": PS((nl, d, (H + 2 * KH) * hd), (None, FSDP, TP)), "wo": wo}
         if cfg.qkv_bias:
-            s["bqkv"] = PS((nl, (H + 2 * KH) * hd), "zeros")
+            s["bqkv"] = PS((nl, (H + 2 * KH) * hd), (None, TP), "zeros")
         return s
     s = {
-        "wq": PS((nl, d, H * hd)),
-        "wk": PS((nl, d, KH * hd)),
-        "wv": PS((nl, d, KH * hd)),
+        "wq": PS((nl, d, H * hd), (None, FSDP, TP)),
+        "wk": PS((nl, d, KH * hd), (None, FSDP, TP)),
+        "wv": PS((nl, d, KH * hd), (None, FSDP, TP)),
         "wo": wo,
     }
     if cfg.qkv_bias:
-        s["bq"] = PS((nl, H * hd), "zeros")
-        s["bk"] = PS((nl, KH * hd), "zeros")
-        s["bv"] = PS((nl, KH * hd), "zeros")
+        s["bq"] = PS((nl, H * hd), (None, TP), "zeros")
+        s["bk"] = PS((nl, KH * hd), (None, TP), "zeros")
+        s["bv"] = PS((nl, KH * hd), (None, TP), "zeros")
     return s
 
 
 def _mlp_specs(d: int, ff: int, nl: int, cfg: ModelConfig) -> dict:
-    down = PS((nl, ff, d), scale=0.02 / math.sqrt(2 * cfg.num_layers))
+    down = PS((nl, ff, d), (None, TP, FSDP), scale=0.02 / math.sqrt(2 * cfg.num_layers))
     if cfg.fused_gate_up:
-        return {"w_gateup": PS((nl, d, 2, ff)), "w_down": down}
-    return {"w_gate": PS((nl, d, ff)), "w_up": PS((nl, d, ff)), "w_down": down}
+        return {"w_gateup": PS((nl, d, 2, ff), (None, FSDP, None, TP)), "w_down": down}
+    return {"w_gate": PS((nl, d, ff), (None, FSDP, TP)),
+            "w_up": PS((nl, d, ff), (None, FSDP, TP)), "w_down": down}
 
 
 def _moe_specs(cfg: ModelConfig, nl: int) -> dict:
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     down_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
     s = {
-        "router": PS((nl, d, E)),
-        "w_gate": PS((nl, E, d, f)),
-        "w_up": PS((nl, E, d, f)),
-        "w_down": PS((nl, E, f, d), scale=down_scale),
+        "router": PS((nl, d, E), (None, FSDP, None)),
+        "w_gate": PS((nl, E, d, f), (None, TP, FSDP, None)),
+        "w_up": PS((nl, E, d, f), (None, TP, FSDP, None)),
+        "w_down": PS((nl, E, f, d), (None, TP, None, FSDP), scale=down_scale),
     }
     if cfg.num_shared_experts:
         sf = f * cfg.num_shared_experts
         if cfg.fused_gate_up:
-            s["shared_w_gateup"] = PS((nl, d, 2, sf))
+            s["shared_w_gateup"] = PS((nl, d, 2, sf), (None, FSDP, None, TP))
         else:
-            s["shared_w_gate"] = PS((nl, d, sf))
-            s["shared_w_up"] = PS((nl, d, sf))
-        s["shared_w_down"] = PS((nl, sf, d), scale=down_scale)
+            s["shared_w_gate"] = PS((nl, d, sf), (None, FSDP, TP))
+            s["shared_w_up"] = PS((nl, d, sf), (None, FSDP, TP))
+        s["shared_w_down"] = PS((nl, sf, d), (None, TP, FSDP), scale=down_scale)
     return s
 
 
@@ -139,55 +150,56 @@ def _mamba_specs(cfg: ModelConfig, nl: int) -> dict:
     d, din = cfg.d_model, cfg.ssm_d_inner
     H, G, N, W = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
     return {
-        "w_zx": PS((nl, d, 2 * din)),
-        "w_bc": PS((nl, d, 2 * G * N)),
-        "w_dt": PS((nl, d, H)),
-        "dt_bias": PS((nl, H), "dt_bias"),
-        "A_log": PS((nl, H), "A_log"),
-        "D": PS((nl, H), "ones_raw"),
-        "conv_x": PS((nl, W, din), scale=0.2),
-        "conv_bc": PS((nl, W, 2 * G * N), scale=0.2),
-        "norm": PS((nl, din), "zeros"),
-        "w_out": PS((nl, din, d), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+        "w_zx": PS((nl, d, 2 * din), (None, FSDP, TP)),
+        "w_bc": PS((nl, d, 2 * G * N), (None, FSDP, None)),
+        "w_dt": PS((nl, d, H), (None, FSDP, TP)),
+        "dt_bias": PS((nl, H), (None, TP), "dt_bias"),
+        "A_log": PS((nl, H), (None, TP), "A_log"),
+        "D": PS((nl, H), (None, TP), "ones_raw"),
+        "conv_x": PS((nl, W, din), (None, None, TP), scale=0.2),
+        "conv_bc": PS((nl, W, 2 * G * N), (None, None, None), scale=0.2),
+        "norm": PS((nl, din), (None, TP), "zeros"),
+        "w_out": PS((nl, din, d), (None, TP, FSDP), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
     }
 
 
 def _unstack(group: dict) -> dict:
-    """Specs built with one stacked layer, without that leading dim."""
-    return {k: PS(v.shape[1:], v.init, v.scale) for k, v in group.items()}
+    """Specs built with one stacked layer, without that leading dim (and
+    its axis)."""
+    return {k: PS(v.shape[1:], v.axes[1:], v.init, v.scale) for k, v in group.items()}
 
 
 def build_param_specs(cfg: ModelConfig) -> dict:
-    """The reference's spec tree.  The hybrid's shared block is built
-    unstacked here, so the reference's ``_fix_shared`` pass (which strips
-    a leading dim of 1 that no registered config leaves) has nothing to
-    do; the parameter-tree tests hold the two trees equal."""
+    """The reference's spec tree, axes included.  The hybrid's shared block
+    is built unstacked here, so the reference's ``_fix_shared`` pass (which
+    strips a leading dim of 1 that no registered config leaves) has
+    nothing to do; the parameter-tree tests hold the two trees equal."""
     d, nl = cfg.d_model, cfg.num_layers
     vp = padded_vocab(cfg)
     specs: dict[str, Any] = {}
     if cfg.frontend != "audio":
-        specs["embed"] = PS((vp, d), scale=1.0)
-    blocks: dict[str, Any] = {"ln1": PS((nl, d), "zeros")}
+        specs["embed"] = PS((vp, d), (TP, FSDP), scale=1.0)
+    blocks: dict[str, Any] = {"ln1": PS((nl, d), (None, None), "zeros")}
     if cfg.family == "ssm":
         blocks["mamba"] = _mamba_specs(cfg, nl)
     elif cfg.family == "hybrid":
         blocks["mamba"] = _mamba_specs(cfg, nl)
         specs["shared"] = {
-            "ln1": PS((d,), "zeros"),
+            "ln1": PS((d,), (None,), "zeros"),
             "attn": _unstack(_attn_specs(cfg, 1)),
-            "ln2": PS((d,), "zeros"),
+            "ln2": PS((d,), (None,), "zeros"),
             "mlp": _unstack(_mlp_specs(d, cfg.d_ff, 1, cfg)),
         }
     else:
         blocks["attn"] = _attn_specs(cfg, nl)
-        blocks["ln2"] = PS((nl, d), "zeros")
+        blocks["ln2"] = PS((nl, d), (None, None), "zeros")
         if cfg.family == "moe":
             blocks["moe"] = _moe_specs(cfg, nl)
         else:
             blocks["mlp"] = _mlp_specs(d, cfg.d_ff, nl, cfg)
     specs["blocks"] = blocks
-    specs["final_norm"] = PS((d,), "zeros")
-    specs["lm_head"] = PS((d, vp))
+    specs["final_norm"] = PS((d,), (None,), "zeros")
+    specs["lm_head"] = PS((d, vp), (FSDP, TP))
     return specs
 
 
@@ -213,6 +225,18 @@ def param_shape_structs(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -
     """The parameter tree as ``ShapeDtype(shape, dtype)`` leaves (nothing
     is allocated)."""
     return _map_specs(lambda s: ShapeDtype(tuple(s.shape), _leaf_dtype(s, dtype)),
+                      build_param_specs(cfg))
+
+
+def param_shardings(cfg: ModelConfig, mesh) -> dict:
+    """The parameter tree as ``core.compat.Placement`` leaves: each leaf's
+    spec resolved against ``mesh`` (``layers.resolve_spec``: an axis the
+    mesh lacks, or one that does not divide the dim, is dropped), whose
+    ``place`` cuts the leaf into each rank's block on that rank's device
+    and ``shard_shape`` gives the block's shape.  On a mesh of ``meta``
+    devices nothing is allocated: the dry-run reads per-rank shapes and
+    bytes from it."""
+    return _map_specs(lambda s: Placement(mesh, L.resolve_spec(mesh, s.shape, s.axes)),
                       build_param_specs(cfg))
 
 
@@ -282,22 +306,23 @@ def layer_params(blocks: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def ffn_block(x, p, cfg: ModelConfig):
+def ffn_block(x, p, cfg: ModelConfig, mesh=None):
     """The post-attention half of a layer (the reference's
     ``_ffn_decode``): ``x + ffn(rmsnorm(x, ln2))``, the FFN a SwiGLU MLP
-    or, in an MoE layer, :func:`moe_block`.  Returns (x, the layer's aux
-    loss, or None for an MLP)."""
+    or, in an MoE layer, :func:`moe_block` (expert-parallel over ``mesh``
+    when one is given).  Returns (x, the layer's aux loss, or None for an
+    MLP)."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        mo, aux = moe.moe_block(h, p["moe"], cfg)
+        mo, aux = moe.moe_block(h, p["moe"], cfg, mesh)
         return x + mo, aux
     return x + L.swiglu_mlp(h, p["mlp"]), None
 
 
-def apply_shared_block(x, sp, cfg: ModelConfig, positions):
+def apply_shared_block(x, sp, cfg: ModelConfig, positions, mesh=None):
     """The hybrid's parameter-shared attention+MLP block."""
     h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    return ffn_block(x + attention_block(h, sp["attn"], cfg, positions), sp, cfg)[0]
+    return ffn_block(x + attention_block(h, sp["attn"], cfg, positions), sp, cfg, mesh)[0]
 
 
 def shared_after(cfg: ModelConfig, i: int) -> bool:
@@ -329,15 +354,15 @@ def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-def _layer(x, aux, lp, i, shared, cfg: ModelConfig, positions):
+def _layer(x, aux, lp, i, shared, cfg: ModelConfig, positions, mesh):
     """Layer ``i`` (and the hybrid's shared block where it follows)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family in ("ssm", "hybrid"):
         x = x + mamba_block(h, lp["mamba"], cfg)
         if shared_after(cfg, i):
-            x = apply_shared_block(x, shared, cfg, positions)
+            x = apply_shared_block(x, shared, cfg, positions, mesh)
         return x, aux
-    x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg)
+    x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg, mesh)
     return x, aux if a is None else aux + a
 
 
@@ -390,9 +415,13 @@ def _count_once(fn):
     return run
 
 
-def forward(params: dict, inputs: dict, cfg: ModelConfig, *, last_only: bool = False):
+def forward(params: dict, inputs: dict, cfg: ModelConfig, mesh=None, *, last_only: bool = False):
     """-> (logits [B, S, V_pad] float32, aux loss float32: the MoE layers'
-    load-balance losses summed, 0 without MoE).  ``inputs`` as
+    load-balance losses summed, 0 without MoE).  With a ``mesh`` the MoE
+    layers run expert-parallel over it (``models/moe.py``; the batch split
+    over its dp axes, each data shard's capacity its own, the aux data
+    shard 0's); every other layer keeps its one-device arithmetic on the
+    whole batch, which is each data shard's row for row.  ``inputs`` as
     :func:`embed_inputs` reads them (``launch/inputs.py::make_inputs``
     makes them); positions run over the whole sequence, patches included.
     ``last_only`` computes the final position's logits only (the
@@ -415,14 +444,15 @@ def forward(params: dict, inputs: dict, cfg: ModelConfig, *, last_only: bool = F
         for unit in units(cfg):
             def run(x, aux, unit=unit):
                 for i in unit:
-                    x, aux = _layer(x, aux, per_layer[i], i, shared, cfg, positions)
+                    x, aux = _layer(x, aux, per_layer[i], i, shared, cfg, positions, mesh)
                 return x, aux
 
             x, aux = checkpoint(_count_once(run), x, aux, use_reentrant=False,
                                 context_fn=context_fn)
     else:
         for i in range(cfg.num_layers):
-            x, aux = _layer(x, aux, layer_params(params["blocks"], i), i, shared, cfg, positions)
+            x, aux = _layer(x, aux, layer_params(params["blocks"], i), i, shared, cfg, positions,
+                            mesh)
     if last_only:
         x = x[:, -1:, :]
     return lm_logits(x, params, cfg), aux
@@ -445,12 +475,13 @@ def _unbind_layers(blocks: dict, n: int) -> list:
     return out
 
 
-def loss_fn(params: dict, inputs: dict, cfg: ModelConfig):
+def loss_fn(params: dict, inputs: dict, cfg: ModelConfig, mesh=None):
     """Mean cross-entropy over ``labels >= 0`` plus ``AUX_LOSS_COEF`` times
-    the MoE aux loss.  Returns ``(loss, {"ce", "aux", "ntok"})``.  For the
-    vision frontend the labels are padded with ``vis_tokens`` of -1 in
-    front, for the patches."""
-    logits, aux = forward(params, inputs, cfg)
+    the MoE aux loss (:func:`forward`'s, over ``mesh`` when given).
+    Returns ``(loss, {"ce", "aux", "ntok"})``.  For the vision frontend
+    the labels are padded with ``vis_tokens`` of -1 in front, for the
+    patches."""
+    logits, aux = forward(params, inputs, cfg, mesh)
     labels = inputs["labels"].long()
     if cfg.frontend == "vision":
         pad = torch.full((labels.shape[0], cfg.vis_tokens), -1, dtype=labels.dtype,

@@ -1,6 +1,6 @@
 """Serving steps: cache-building prefill and batched greedy decode.
 
-Port of ``repro/serve/serve_step.py`` for one device.  ``prefill_with_cache``
+Port of ``repro/serve/serve_step.py``.  ``prefill_with_cache``
 runs a prompt through the model and fills the cache (flash attention and the
 SSD intra-chunk kernel on the card); ``make_decode_step`` builds the step
 that takes one new token per sequence against the cache.  The reference's
@@ -18,7 +18,11 @@ MoE block on one token a sequence, so its capacity is
 ``int(B*K/E * capacity_factor) + 1`` and colliding assignments drop, as in
 the reference (``models/moe.py``).  The serving paths take token prompts:
 a config with a modality frontend is served with ``frontend="none"``, as
-the reference's serving CLI does.
+the reference's serving CLI does.  Both take an optional mesh, as the
+reference's do: the MoE layers then run expert-parallel over it
+(``models/moe.py``: each data shard of the batch routed at its own
+capacity, each model rank its E/tp experts), the rest of the step and the
+cache on the tokens' device.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.serve.kvcache import init_cache
 _SSM_STATE = ("conv_x", "conv_bc", "ssm")
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
     """Returns ``decode_step(params, cache, tokens [B,1]) -> (logits
     [B,1,V_pad] float32, cache)``; the cache is updated in place."""
 
@@ -55,20 +59,20 @@ def make_decode_step(cfg: ModelConfig):
                     g = i // cfg.shared_attn_every
                     h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
                     o, _, _ = gqa_decode(h, shared["attn"], cfg, cache["sk"][g], cache["sv"][g], pos)
-                    x, _ = ffn_block(x + o, shared, cfg)
+                    x, _ = ffn_block(x + o, shared, cfg, mesh)
             else:
                 if cfg.attn == "mla":
                     o, _, _ = mla_decode(h, lp["attn"], cfg, cache["c_kv"][i], cache["k_rope"][i], pos)
                 else:
                     o, _, _ = gqa_decode(h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos)
-                x, _ = ffn_block(x + o, lp, cfg)
+                x, _ = ffn_block(x + o, lp, cfg, mesh)
         cache["pos"] = pos + 1
         return lm_logits(x, params, cfg), cache
 
     return decode_step
 
 
-def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int):
+def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *, mesh=None):
     """Run the prompt ``tokens`` [B, S] through the model, returning
     (last-token logits [B,1,V_pad] float32, a cache on the tokens' device
     positioned at S) so that greedy decode continues where a plain forward
@@ -94,16 +98,16 @@ def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: 
                 o, kf, vf = gqa_attention(h, shared["attn"], cfg, positions, return_kv=True)
                 cache["sk"][inv, :, :S].copy_(kf)
                 cache["sv"][inv, :, :S].copy_(vf)
-                x, _ = ffn_block(x + o, shared, cfg)
+                x, _ = ffn_block(x + o, shared, cfg, mesh)
         elif cfg.attn == "mla":
             o, ck, kr = mla_attention(h, lp["attn"], cfg, positions, return_kv=True)
             cache["c_kv"][i, :, :S].copy_(ck)
             cache["k_rope"][i, :, :S].copy_(kr)
-            x, _ = ffn_block(x + o, lp, cfg)
+            x, _ = ffn_block(x + o, lp, cfg, mesh)
         else:
             o, kf, vf = gqa_attention(h, lp["attn"], cfg, positions, return_kv=True)
             cache["k"][i, :, :S].copy_(kf)
             cache["v"][i, :, :S].copy_(vf)
-            x, _ = ffn_block(x + o, lp, cfg)
+            x, _ = ffn_block(x + o, lp, cfg, mesh)
     cache["pos"].fill_(S)
     return lm_logits(x[:, -1:], params, cfg), cache

@@ -238,6 +238,23 @@ def test_ssh_candidates_id_offset_and_pairs_from_rows():
             assert_same(g, w)
 
 
+def test_pairs_from_rows_past_int32_slots():
+    """One run of 70,000 equal keys has 2,449,965,000 pairs, past 2**31:
+    the reference's int32 slot count wraps negative, so it returns no pair
+    and no overflow; the port enumerates the first ``cap`` pairs and holds
+    its overflow count at 2**31 - 1."""
+    n, cap = 70_000, 4096
+    keys, ids = np.full(n, 5, np.int32), np.arange(n, dtype=np.int32)
+    lo, hi, overflow = tssh.pairs_from_rows(T(keys), T(ids), pair_capacity=cap)
+    row = np.repeat(np.arange(1, 92), np.arange(1, 92))[:cap]  # row r pairs with rows 0..r-1
+    partner = np.concatenate([np.arange(r) for r in range(1, 92)])[:cap]
+    np.testing.assert_array_equal(lo.numpy(), partner)
+    np.testing.assert_array_equal(hi.numpy(), row)
+    assert overflow.dtype == torch.int32 and int(overflow) == 2**31 - 1
+    want = jssh.pairs_from_rows(jnp.asarray(keys), jnp.asarray(ids), pair_capacity=cap)
+    assert int(want[2]) == 0 and bool((np.asarray(want[0]) == tssh.PAD_ID).all())
+
+
 def test_dedup_pairs_bit_equal():
     rng = np.random.default_rng(2)
     lo = rng.integers(0, 30, size=500).astype(np.int32)

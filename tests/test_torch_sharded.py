@@ -411,8 +411,10 @@ def test_shard_map_specs_and_mesh_refusals():
     assert out.shape == (2, 3, 1) and out.reshape(-1).tolist() == [3, 4, 5, 6, 7, 8]
     with pytest.raises(ValueError, match="equal shards"):
         mesh.shard_rows(torch.arange(5))
-    with pytest.raises(ValueError, match="flat one-axis"):
-        compat.make_mesh((2, 2), ("data", "model"), devices=(CPU,) * 4)
+    with pytest.raises(ValueError, match="one to three axes"):
+        compat.make_mesh((2, 2, 2, 2), ("a", "b", "c", "d"), devices=(CPU,) * 16)
+    with pytest.raises(ValueError, match="given 3 devices"):
+        compat.make_mesh((2, 2), ("data", "model"), devices=(CPU,) * 3)
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="CUDA devices"):
             compat.make_mesh((2,), ("ex",))

@@ -176,6 +176,42 @@ def test_adamw_update_equals_reference(bits):
             close(tmom[key], want, rel=1e-5 if bits == 8 else 1e-6)
 
 
+_RANDOM_TREE_SHAPES = ((64, 300), (128, 256), (1000,), (32, 4, 70))
+_JIT_ADAMW = jax.jit(jopt.adamw_update, static_argnums=3)
+
+
+@pytest.mark.parametrize("tree", range(12))
+def test_adamw_8bit_codes_follow_the_norm(tree):
+    """8-bit moments on a random 4-leaf tree, 3 clipped steps (grads
+    N(0, 0.3^2)), each step taken by both packages from the reference's
+    state: the int8 codes are equal wherever the two global norms are
+    equal, and within 1 where they are not.  The norms may differ by an
+    ulp: a leaf's float32 sum of squares follows XLA's reduction order
+    (windows of 32, then fusion-dependent contractions) in the reference
+    and torch's in the port, and the clip scale carries that ulp into m
+    and v, where a value at a rounding boundary of ``round(x / scale)``
+    flips a code (ROADMAP §3, reference behaviours)."""
+    rng = np.random.default_rng(100 + tree)
+    cfg = dict(lr=1e-3, state_bits=8, warmup_steps=3)
+    jcfg, tcfg = jopt.OptConfig(**cfg), topt.OptConfig(**cfg)
+    jp = {f"l{i}": jnp.asarray((rng.normal(size=s) * 0.02).astype(np.float32))
+          for i, s in enumerate(_RANDOM_TREE_SHAPES)}
+    jst = jopt.init_opt_state(jp, jcfg)
+    for _ in range(3):
+        g = {k: (rng.normal(size=v.shape) * 0.3).astype(np.float32) for k, v in jp.items()}
+        tp, tst = jax.tree.map(T, jp), jax.tree.map(T, jst)
+        jp, jst, jm = _JIT_ADAMW(jp, jax.tree.map(jnp.asarray, g), jst, jcfg)
+        tp, tst, tm = topt.adamw_update(tp, jax.tree.map(T, g), tst, tcfg)
+        assert float(tm["grad_norm"]) > tcfg.grad_clip  # the clip is on
+        same_norm = float(tm["grad_norm"]) == float(jm["grad_norm"])
+        close(tm["grad_norm"], jm["grad_norm"])
+        for key, want in flat(jax.tree.map(np.asarray, jst["moments"])).items():
+            if key[-1] != "q":
+                continue
+            diff = np.abs(N(flat(tst["moments"])[key]).astype(np.int64) - want.astype(np.int64))
+            assert diff.max() <= (0 if same_norm else 1), (key, same_norm, int(diff.max()))
+
+
 def test_adamw_8bit_close_to_fp32():
     """As the reference's test: 8-bit updates point where float32's do."""
     _, tp = _params(2)

@@ -3,6 +3,7 @@
 
     python3 tools/lm_phases.py            # the serving phases
     python3 tools/lm_phases.py --train    # the training phases alone
+    python3 tools/lm_phases.py --mesh     # the mesh phases alone
 
 Builds every kernel and runs ``chip_smoke.py``'s phases 19-22 (flash
 attention and the SSD step at edge shapes, the reduced models card against
@@ -11,7 +12,10 @@ minicpm3-4b at 31 of its 62 layers, at full width, the #6 and #7 timing rows) wi
 in about 2.5 minutes instead of the whole script's ten; with ``--train``
 its phases 23-26 instead (the two autograd ops' gradients and times, the
 reduced models' gradients card against CPU, zamba2-2.7b trained at full
-width, the training example).  The last line is the ``{"kernels": [...]}``
+width, the training example); with ``--mesh`` its phases 27-30 (expert-
+parallel deepseek-v2 serving on (1, 2) and (2, 2) meshes of the card,
+data-parallel zamba2 training on a (2, 1) mesh, the dry-run and the perf
+variants).  The last line is the ``{"kernels": [...]}``
 JSON of the phases run.  Needs nvcc and a CUDA card; imports nothing of
 JAX.
 """
@@ -41,6 +45,8 @@ def main() -> int:
     figures = chip_smoke.phase_build()
     if "--train" in sys.argv[1:]:
         entries = chip_smoke.phase_train(torch, dev, [])
+    elif "--mesh" in sys.argv[1:]:
+        entries = chip_smoke.phase_mesh(torch, dev, [])
     else:
         entries = chip_smoke.phase_lm(torch, dev, figures)
     chip_smoke.log(f"lm_phases: passed in {time.perf_counter() - t0:.1f} s; {smi}")
