@@ -11,7 +11,9 @@ phases, and exits non-zero if any phase fails:
 2. build   — compiles every kernel source with nvcc for sm_90a, in parallel;
    logs each source's build seconds and ptxas report, and requires HGMMA
    (wgmma) instructions in the SASS of both tensor-core libraries (flash
-   attention and the SSD intra-chunk step), no shared or local memory
+   attention and the SSD intra-chunk step), no spill and no serialized
+   wgmma in flash attention's instantiations past head dim 128 (logging
+   every instantiation's registers and spills), no shared or local memory
    instruction in the fused scorers' register kernels at the paths' widths
    and no local memory (spill) instruction in the batched LCS kernel's
    register kernels at 10 and 8 (whose DP instructions a cell it counts for
@@ -187,9 +189,9 @@ phases, and exits non-zero if any phase fails:
    ``examples/torch_find_another_me.py`` on the card, last lines checked.
 19. lm kernels — flash attention (#6) and the SSD intra-chunk step (#7)
    against their plain versions at edge shapes (ragged lengths, head dims
-   64/80/96/112/128/192, GQA 1 and 4, causal and not; float32 on the
-   CUDA-core route, bfloat16 on the wgmma route (D <= 128) and again on the
-   CUDA-core route, bfloat16 at D = 192 on the CUDA-core route; SSD
+   64/80/96/112/128/144/192/256, GQA 1 and 4, causal and not; float32 on
+   the CUDA-core route, bfloat16 on the wgmma route and again on the
+   CUDA-core route; SSD
    chunks 1/16/65/128, states and head dims 64 and 128, 9 heads, bfloat16
    on both of #7's routes, float32 on the CUDA-core route, ``bf16_intra``
    on the wgmma route) and the chunked SSD scan against its plain version
@@ -205,9 +207,8 @@ phases, and exits non-zero if any phase fails:
    minicpm3-4b (cut from 62 layers to 31) at their full published widths (random
    bfloat16 weights from a seed) serve 4 prompts of 2,048 tokens and 32
    greedy tokens each: the prefill launches #6 9 (zamba2), 40 (granite),
-   4 (deepseek-v2) and 31 (minicpm3) times, on the wgmma route but for
-   deepseek-v2's MLA head dim of 192, which takes the CUDA-core route, and
-   #7 54 times (zamba2), every one on its wgmma route; the first call's
+   4 (deepseek-v2, MLA's head dim 192) and 31 (minicpm3) times, and #7 54
+   times (zamba2), every one on its wgmma route; the first call's
    kernel operands are rerun through the plain versions; the prefill is
    held against ``forward(last_only)`` and (but for MoE) ``forward`` over
    the longer sequence, and two teacher-forced decode steps against a
@@ -224,7 +225,8 @@ phases, and exits non-zero if any phase fails:
    minicpm3), at kimi-k2's GQA head dim (112) and hubert-xlarge's
    non-causal heads (80) and at prefill_32k's length (also by the launch
    alone), beside its plain version and ``scaled_dot_product_attention``
-   (and, at granite's operands, the CUDA-core kernel); #7 at zamba2's
+   (and, at granite's and deepseek-v2's operands, the CUDA-core kernel, which
+   at deepseek-v2's must take at least 10x the launch alone); #7 at zamba2's
    operands on both routes beside its plain version, with the tensor-core
    source's ptxas registers, spills and HGMMA count.
 
@@ -254,7 +256,8 @@ phases, and exits non-zero if any phase fails:
 
 27. lm deepseek-v2 ep — deepseek-v2-236b at published widths, 2 of 60
    layers, on (1, 2) and (2, 2) meshes of the card (``devices=(card,) *
-   n``): 4 prompts of 2,048 tokens and 8 decode steps; the (1, 2) run held
+   n``): 4 prompts of 2,048 tokens (#6 on the wgmma route) and 8 decode
+   steps; the (1, 2) run held
    to the one-device run (routing equal wherever a layer's input is, the
    logits of the requests routed alike within 5e-2), the (2, 2) run (each
    data shard at its own capacity) to the same mesh's plain-version path;
@@ -439,6 +442,24 @@ def phase_build():
         figures[name] = dict(
             hgmma=len(hgmma), kernels=_ptxas_by_kernel(text),
             build_s=float(m.group(1)) if (m := re.search(r"^nvcc \S+: ([\d.]+) s", text)) else None)
+    # flash attention past head dim 128 (KS = D / 16 > 8: 3 or 4 chunks of 64
+    # columns, narrower key tiles): no spill, and ptxas kept the wgmmas async
+    flash = figures["flash_attention_sm90"]["kernels"]
+    if "flash_attention_sm90" not in logs:  # built before this run: no ptxas report to read
+        log("flash_attention_sm90: built before this run; its ptxas report is not checked")
+    else:
+        check("?" not in flash, f"flash_attention_sm90: a serialized wgmma outside an instantiation {flash}")
+        ks = {k: int(k.split(",")[0]) for k in flash}
+        wide = {k: v for k, v in flash.items() if ks[k] > 8}
+        check(len(wide) == 8, f"flash_attention_sm90: instantiations past D = 128 {sorted(wide)}")
+        for key, v in wide.items():
+            check(v.get("spill_store_bytes") == 0, f"flash_attention_sm90 <{key}>: spills {v}")
+            check(not v.get("serialized"), f"flash_attention_sm90 <{key}>: {v.get('serialized')}")
+        log("flash_attention_sm90 ptxas (<KS, NS, NC>: registers, spill-store bytes): "
+            + ", ".join(f"{k} {flash[k].get('registers')} {flash[k].get('spill_store_bytes')}"
+                        for k in sorted(flash, key=ks.get))
+            + "; no spill and no serialized wgmma past D = 128; built in "
+            + f"{figures['flash_attention_sm90']['build_s']} s")
     for name, width in (("fused_score", 10), ("fused_windowed_score", SUB_WINDOW)):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -509,17 +530,26 @@ def _register_kernel_figures(name, sass, build_log, width, refused=("LDS", "STS"
 
 
 def _ptxas_by_kernel(text):
-    """ptxas's registers and spill-store bytes for each instantiation in a
-    build log, keyed by its template arguments ("1,1,0")."""
+    """ptxas's registers, spill-store bytes and wgmma serialization warnings
+    (``serialized``) for each instantiation in a build log, keyed by its
+    template arguments ("1,1,0")."""
     out, cur = {}, None
+
+    def key(mangled):
+        return ",".join(re.findall(r"L[ib](\d+)E", mangled)) or mangled
+
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            cur = ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) or m.group(1)
-            out[cur] = {}
+            cur = key(m.group(1))
+            out.setdefault(cur, {})
         elif cur and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[cur]["spill_store_bytes"] = int(m.group(1))
         elif cur and (m := re.search(r"Used (\d+) registers", line)):
             out[cur]["registers"] = int(m.group(1))
+        if "wgmma" in line and "serialized" in line:  # the warning names its function
+            m = re.search(r"function '(\S+?)'", line)
+            out.setdefault(key(m.group(1)) if m else (cur or "?"), {}).setdefault(
+                "serialized", []).append(line.strip()[:200])
     return out
 
 
@@ -3169,8 +3199,9 @@ def _ssd_operands(torch, dev, BC, Q, H, P, N, dtype, rng):
 def phase_lm_kernels(torch, dev):
     """Kernels #6 and #7 against their plain versions on the card at edge
     shapes: float32 within 1e-4, bfloat16 attention within 3e-2 on both of
-    #6's routes (the wrapper's wgmma route, then the CUDA-core kernel run
-    by name on the same operands); #7 within 1e-4 on both of its routes
+    #6's routes (the wrapper's wgmma route, at every head dim here, then the
+    CUDA-core kernel run by name on the same operands); #7 within 1e-4 on
+    both of its routes
     (5e-2 under ``bf16_intra``), alone and in the chunked scan."""
     import numpy as np
 
@@ -3183,7 +3214,7 @@ def phase_lm_kernels(torch, dev):
     fk = attn.flash_attention_kernel
     worst, n = {}, 0
     for S in (1, 65, 1000):
-        for D in (64, 80, 96, 112, 128, 192):
+        for D in (64, 80, 96, 112, 128, 144, 192, 256):
             for rep in (1, 4):
                 base = [torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
                         for sh in ((2, S, 2 * rep, D), (2, S, 2, D), (2, S, 2, D))]
@@ -3208,9 +3239,8 @@ def phase_lm_kernels(torch, dev):
                             key = (route, str(dtype).removeprefix("torch."))
                             worst[key] = max(worst.get(key, 0.0), err)
                             n += 1
-    log(f"flash_attention_kernel: {n} edge cases (S 1/65/1000, D 64/80/96/112/128/192, rep 1/4, "
-        f"causal and not; bfloat16 on both routes up to D 128, on the CUDA cores at 192) within "
-        f"tolerance; worst "
+    log(f"flash_attention_kernel: {n} edge cases (S 1/65/1000, D 64/80/96/112/128/144/192/256, rep "
+        f"1/4, causal and not; bfloat16 on both routes) within tolerance; worst "
         + ", ".join(f"{r} {d} {e:.3g}" for (r, d), e in sorted(worst.items())))
     si = ssd.ssd_intra
     worst, n = {}, 0
@@ -3709,9 +3739,9 @@ def _causal_pairs(Sq, Skv):
 
 def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
     """#6 at one shape: the wrapper's kernel (the wgmma route on bf16 with
-    D <= 128) beside the plain version and SDPA; with ``cuda_cores`` also
-    the CUDA-core kernel (``flash_attention.cu``), run by name on the same
-    operands."""
+    D a multiple of 16) beside the plain version and SDPA; with
+    ``cuda_cores`` also the CUDA-core kernel (``flash_attention.cu``), run
+    by name on the same operands."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import kernel as attn
@@ -3753,7 +3783,8 @@ def _flash_row(torch, q, k, v, causal, launches, path, cuda_cores=False):
         row["cuda_cores_ms"] = _time_ms(torch, old, reps=3)
         row["cuda_cores_max_abs_err"] = _max_err(old(), want)
         extra = (f"; the CUDA-core kernel {row['cuda_cores_ms']:.3f} ms "
-                 f"({row['cuda_cores_ms'] / ms:.1f}x the {row['kernel_route']} kernel)")
+                 f"({row['cuda_cores_ms'] / ms:.1f}x the {row['kernel_route']} kernel with its wrapper, "
+                 f"{row['cuda_cores_ms'] / launch_ms:.1f}x the launch alone)")
     log(f"timing flash_attention_kernel [{path}] q {list(q.shape)} k {list(k.shape)}: {ms:.3f} ms "
         f"on the {row['kernel_route']} route with its wrapper, one launch an event pair (the launch "
         f"alone {launch_ms:.3f} ms, ten an event pair: {bound / launch_ms:.1%} of its bound; plain "
@@ -3809,9 +3840,13 @@ def phase_timing_lm(torch, dev, full, figures):
         if arch == "zamba2-2.7b":
             continue
         row = _flash_row(torch, *ops["flash_attention_kernel"], counts["flash_attention_kernel"],
-                         f"{arch} {prompt}", cuda_cores=arch == "granite-3-8b")
+                         f"{arch} {prompt}", cuda_cores=arch in ("granite-3-8b", "deepseek-v2-236b"))
         row["launches_by_route"] = routes["flash_attention_kernel"]
         rows.append(row)
+        if arch == "deepseek-v2-236b":  # MLA's D = 192 left the CUDA cores for the tensor cores
+            check(row["kernel_route"] == "wgmma" and row["cuda_cores_ms"] >= 10 * row["launch_ms"],
+                  f"#6 at deepseek-v2's operands: the {row['kernel_route']} launch alone "
+                  f"{row['launch_ms']:.3f} ms, the CUDA-core kernel {row['cuda_cores_ms']:.3f} ms (< 10x)")
     rng = np.random.default_rng(2)
     for arch, causal in (("kimi-k2-1t-a32b", True), ("hubert-xlarge", False)):
         cfg = get_config(arch)
@@ -3831,9 +3866,9 @@ def phase_timing_lm(torch, dev, full, figures):
                  replaces="src/repro/kernels/attention/kernel.py:111", **main,
                  launches_by_route=z_routes["flash_attention_kernel"], launches_lm=launches_lm,
                  other_route=dict(name="cuda_cores", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                                  takes="float32, and bfloat16 head dims outside 16..128 step 16 "
-                                        "(deepseek-v2's MLA: 192)"),
-                 rows=rows)
+                                  takes="float32, and bfloat16 head dims that are not multiples of 16 "
+                                        "(72, 136, 200)"),
+                 ptxas=figures["flash_attention_sm90"], rows=rows)
     flash["launches"] = sum(launches_lm.values())
 
     # the path hands the wrapper views of B and C with the row stride of the
@@ -3913,10 +3948,9 @@ def phase_lm(torch, dev, figures):
     for arch, expect, kw in (
             ("zamba2-2.7b", {"flash_attention_kernel": 9, "ssd_intra": 54}, {}),
             ("granite-3-8b", {"flash_attention_kernel": 40}, {}),
-            # MLA's q/k head dim 128 + 64 = 192 is past the wgmma kernel's 128;
-            # 4 of 60 layers: the 60 would be ~476 GB of bfloat16 weights
-            ("deepseek-v2-236b", {"flash_attention_kernel": 4},
-             dict(routes={"flash_attention_kernel": "cuda_cores"}, num_layers=4)),
+            # MLA's q/k head dim 128 + 64 = 192 (64-key tiles on the wgmma
+            # route); 4 of 60 layers: the 60 would be ~476 GB of bfloat16 weights
+            ("deepseek-v2-236b", {"flash_attention_kernel": 4}, dict(num_layers=4)),
             # 31 of 62 layers: the smoke's 600 s aim once the training
             # phases joined it
             ("minicpm3-4b", {"flash_attention_kernel": 31}, dict(num_layers=31))):
@@ -4441,6 +4475,7 @@ def _serve_on_mesh(torch, params, cfg, tokens, mesh, steps, teacher=None):
             params, tokens, cfg, tokens.shape[1] + steps, mesh=mesh))
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        routes = dict(_wrappers()["flash_attention_kernel"].launches_by_route)
         dropped = [moe.dropped_assignments()]
         out, fed = [logits[:, -1, :V].float()], []
         step = make_decode_step(cfg, mesh)
@@ -4458,7 +4493,7 @@ def _serve_on_mesh(torch, params, cfg, tokens, mesh, steps, teacher=None):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
     return dict(logits=out, fed=torch.cat(fed, dim=1), routing=routing.calls, dropped=dropped,
-                counts=counts, seconds=(prefill_s, decode_s))
+                counts=counts, routes=routes, seconds=(prefill_s, decode_s))
 
 
 def _routing_held(got, want, B, dp=1, inputs_equal=True):
@@ -4568,6 +4603,10 @@ def phase_lm_ep(torch, dev):
               for name, r in (("mesh=None", one), ("(1, 2)", ep12), ("(2, 2)", ep22))}
     check(all(c["flash_attention_kernel"] == MESH_EP_LAYERS for c in counts.values()),
           f"{tag}: prefill launches {counts}")
+    # MLA's D = 192 on the tensor cores (bfloat16 activations)
+    routes = {name: r["routes"] for name, r in (("mesh=None", one), ("(1, 2)", ep12), ("(2, 2)", ep22))}
+    check(all(r == {"wgmma": MESH_EP_LAYERS, "cuda_cores": 0} for r in routes.values()),
+          f"{tag}: prefill flash-attention routes {routes}")
     log(f"{tag}: prefill {LM_BATCH} x {LM_PROMPT} tokens + {MESH_EP_STEPS} decode steps on one device "
         f"{one['seconds'][0]:.3f} + {one['seconds'][1]:.3f} s, (1, 2) {ep12['seconds'][0]:.3f} + "
         f"{ep12['seconds'][1]:.3f} s, (2, 2) {ep22['seconds'][0]:.3f} + {ep22['seconds'][1]:.3f} s; "
@@ -4579,7 +4618,7 @@ def phase_lm_ep(torch, dev):
         f"({left12} of {pairs} left out), over every request {all12}; drops {ep12['dropped']} vs "
         f"{one['dropped']}; (2, 2) vs its plain path: held {held22} ({left22} of {pairs} left out), "
         f"logits {err22}, every request {all22}; drops (capacity a data shard) {ep22['dropped']} vs "
-        f"plain {plain22['dropped']}; prefill launches {counts}")
+        f"plain {plain22['dropped']}; prefill launches {counts}, flash-attention routes {routes}")
     return {k: v["flash_attention_kernel"] for k, v in counts.items()}
 
 

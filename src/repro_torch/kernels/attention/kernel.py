@@ -15,14 +15,16 @@ guard (``l`` summed from the float32 ``p``), and the output rounded once to
 tensors, by dtype and head dim (:func:`route`), and takes the plain
 version, :func:`flash_attention_plain`, only for CPU tensors:
 
-- ``"wgmma"``: bfloat16 with D a multiple of 16 up to 128 (every head dim
-  of the registered dense and hybrid configs: 80 and 128) runs
+- ``"wgmma"``: bfloat16 with D a multiple of 16 up to 256 (every head dim
+  of the registered configs: 80, 96, 112 and 128, and MLA's 192) runs
   ``kernels/csrc/flash_attention_sm90.cu`` on the tensor cores (``wgmma``
-  fed by TMA).  It rounds ``p`` to bfloat16 before ``p @ v``, as the Pallas
-  body does (``p.astype(v.dtype)``); within 3e-2 of the plain version.
-- ``"cuda_cores"``: float32, and bfloat16 head dims outside that set, run
-  ``kernels/csrc/flash_attention.cu`` in float32 on the CUDA cores, with
-  ``p @ v`` in float32 as ``chunked_attention`` computes it.
+  fed by TMA) over key tiles of :func:`key_tile` keys.  It rounds ``p`` to
+  bfloat16 before ``p @ v``, as the Pallas body does
+  (``p.astype(v.dtype)``); within 3e-2 of the plain version.
+- ``"cuda_cores"``: float32, and bfloat16 head dims outside that set (72,
+  136, 200, ...), run ``kernels/csrc/flash_attention.cu`` in float32 on the
+  CUDA cores, with ``p @ v`` in float32 as ``chunked_attention`` computes
+  it.
 
 The plain version keeps ``p`` in float32, as ``chunked_attention`` does.
 Every launch adds one to ``flash_attention_kernel.launches`` and to its
@@ -48,7 +50,6 @@ NEG_INF = -1e30
 # chunked_attention's q and kv chunk lengths (the plain version's blocks)
 Q_CHUNK = KV_CHUNK = 1024
 MAX_HEAD_DIM = 256
-WGMMA_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
 # route -> (csrc source, C launcher, its ctypes argument types)
@@ -177,7 +178,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel a CUDA call with this dtype and head dim launches:
-    ``"wgmma"`` for bfloat16 with D a multiple of 16 up to 128, else
+    ``"wgmma"`` for bfloat16 with D a multiple of 16 (up to 256), else
     ``"cuda_cores"``.  Raises on what neither takes (another dtype, D over
     256 or not a multiple of 8)."""
     if dtype not in _DTYPES:
@@ -185,9 +186,21 @@ def route(dtype: torch.dtype, D: int) -> str:
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"the flash-attention kernels take head_dim <= {MAX_HEAD_DIM} "
                          f"and a multiple of 8, got {D}")
-    if dtype == torch.bfloat16 and D % 16 == 0 and D <= WGMMA_MAX_HEAD_DIM:
+    if dtype == torch.bfloat16 and D % 16 == 0:
         return "wgmma"
     return "cuda_cores"
+
+
+# keys per k/v tile of the wgmma kernel by 64-column chunks of the head dim
+# (flash_attention_sm90.cu's Tile table): 128 up to D = 128, and past it as
+# many as the 227 KB of shared memory a block may use leave room for
+_KEY_TILE = {1: 128, 2: 128, 3: 64, 4: 64}
+
+
+def key_tile(D: int) -> int:
+    """Keys per k/v tile of the ``"wgmma"`` kernel at head dim ``D``: the
+    online softmax's block, so the kernel's numbers depend on it."""
+    return _KEY_TILE[-(-D // 64)]
 
 
 def tma_ready(t: torch.Tensor) -> bool:

@@ -164,11 +164,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pass ``causal`` alone), through the flash-attention op: a Hopper kernel
     for CUDA tensors, the plain online-softmax version (p in float32, as
     the reference keeps it) for CPU tensors.  On the card, bfloat16 with a
-    head dim that is a multiple of 16 up to 128 (every registered dense and
-    hybrid config) runs on the tensor cores and rounds p to bfloat16 before
-    ``p @ v``, as the reference's Pallas kernel does; float32, and other
-    head dims, run on the CUDA cores with p in float32.  Sq and Skv need
-    not divide any chunk length.
+    head dim that is a multiple of 16 up to 256 (every registered config,
+    MLA's 192 among them) runs on the tensor cores and rounds p to bfloat16
+    before ``p @ v``, as the reference's Pallas kernel does; float32, and
+    other head dims, run on the CUDA cores with p in float32.  Sq and Skv
+    need not divide any chunk length.
     """
     return flash_attention(q, k, v, causal=causal)
 

@@ -8,11 +8,12 @@ loading a library), which operand views TMA reads in place, and the
 tolerance budget of the new numerics.  The wgmma route rounds ``p`` to
 bfloat16 before ``p @ v``, as the Pallas body does, while
 ``flash_attention_plain`` keeps ``p`` in float32 as ``chunked_attention``
-does; a torch emulation of the kernel's arithmetic (128-key tiles, ``l``
-from the float32 ``p``) must stay within the card's 3e-2 bfloat16 bar of the
-plain version at the smoke run's edge shapes and at a granite-like layer,
-and match the JAX Pallas kernel (interpret mode), which rounds ``p`` the
-same way.
+does; a torch emulation of the kernel's arithmetic (key tiles of
+``key_tile(D)`` keys, ``l`` from the float32 ``p``) must stay within the
+card's 3e-2 bfloat16 bar of the plain version at the smoke run's edge
+shapes, at a granite-like layer and at an MLA-like one (D 192, v zero past
+column 128), and match the JAX Pallas kernel (interpret mode, blocks of the
+kernel's key tile), which rounds ``p`` the same way.
 """
 import ctypes
 import math
@@ -33,7 +34,7 @@ BF16_ATOL = 3e-2
 # ---------------------------------------------------------------------------
 # the route rule
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("D", [64, 80, 96, 112, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 112, 128, 144, 160, 176, 192, 208, 224, 240, 256])
 def test_route_bf16_head_dims_take_wgmma(D):
     assert t_attn.route(torch.bfloat16, D) == "wgmma"
 
@@ -41,9 +42,44 @@ def test_route_bf16_head_dims_take_wgmma(D):
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float32, 80),
                                      (torch.float32, 128), (torch.float32, 256),
                                      (torch.bfloat16, 72), (torch.bfloat16, 136),
-                                     (torch.bfloat16, 256)])
+                                     (torch.bfloat16, 200)])
 def test_route_other_cases_take_cuda_cores(dtype, D):
     assert t_attn.route(dtype, D) == "cuda_cores"
+
+
+def _tile_table():
+    """``flash_attention_sm90.cu``'s Tile table: {chunks: (keys, stages)}
+    (the primary template for the chunk counts it does not specialise)."""
+    text = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    primary = re.search(r"struct Tile \{\s*static constexpr int BK = (\d+), NS = NC == 1 \? (\d+) : (\d+);",
+                        text)
+    assert primary, "the Tile table's primary template not found"
+    table = {1: (int(primary.group(1)), int(primary.group(2))),
+             2: (int(primary.group(1)), int(primary.group(3)))}
+    for nc, bk, ns in re.findall(r"struct Tile<(\d+)> \{\s*static constexpr int BK = (\d+), NS = (\d+);",
+                                 text):
+        table[int(nc)] = (int(bk), int(ns))
+    return table
+
+
+def test_key_tile_is_the_kernels_tile_table():
+    """The CPU emulation reads ``key_tile``; the card runs the Tile table."""
+    table = _tile_table()
+    assert sorted(table) == [1, 2, 3, 4]
+    for D in range(16, 257, 16):
+        assert t_attn.key_tile(D) == table[-(-D // 64)][0], D
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+def test_tile_table_fits_the_shared_memory_and_the_wgmma_shapes(nc):
+    """Each tile's shared memory (1 KB of alignment, the 128-row q tile and
+    NS stages of k and v, 128-byte rows of 64 columns) within the 232,448
+    bytes a block may use, less the kernel's static barriers; a key tile the
+    m64nNk16 of q . k and the 16-key steps of p . v take."""
+    bk, ns = _tile_table()[nc]
+    smem = 1024 + nc * 128 * 128 + ns * 2 * nc * bk * 128
+    assert smem + 8 * (ns + 1) + 4 * ns <= 232_448, smem
+    assert bk % 16 == 0 and 16 <= bk <= 256 and ns >= 2
 
 
 @pytest.mark.parametrize("D", [264, 512, 84, 100, 12])
@@ -148,14 +184,16 @@ def test_tma_ready_refuses_misaligned_views():
 # ---------------------------------------------------------------------------
 # the tolerance budget of the wgmma route's numerics
 # ---------------------------------------------------------------------------
-def wgmma_numerics(q, k, v, *, causal=True, block_k=128):
+def wgmma_numerics(q, k, v, *, causal=True, block_k=None):
     """Test-only emulation of ``flash_attention_sm90.cu``'s arithmetic: q . k
     of bfloat16 operands in float32, the -1e30 causal fill, keys past Skv at
-    probability 0, an online softmax over 128-key tiles with ``l`` summed
+    probability 0, an online softmax over tiles of ``block_k`` keys (the
+    kernel's ``key_tile(D)`` unless given) with ``l`` summed
     from the float32 ``p``, ``p`` rounded to bfloat16 before ``p @ v`` (float32
     accumulation), out = acc / max(l, 1e-30) rounded once to bfloat16."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
+    block_k = block_k or t_attn.key_tile(D)
     rep = H // KH
     qf = q.float().reshape(B, Sq, KH, rep, D)
     kf = k.float()
@@ -192,7 +230,7 @@ def _err(a, b):
 
 
 @pytest.mark.parametrize("S", [1, 65, 1000])
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 192, 256])
 @pytest.mark.parametrize("rep", [1, 4])
 def test_wgmma_numerics_within_budget_at_edge_shapes(S, D, rep):
     """chip_smoke.py's edge shapes (B 2, KH 2), causal and not."""
@@ -220,12 +258,27 @@ def test_wgmma_numerics_within_budget_at_a_granite_like_layer():
     assert err <= BF16_ATOL, err
 
 
-@pytest.mark.parametrize("B,S,H,KH,D", [(2, 256, 4, 4, 80), (1, 256, 8, 2, 128)])
+def test_wgmma_numerics_within_budget_at_an_mla_like_layer():
+    """deepseek-v2's MLA at the prefill's length: S 2,048 (32 key tiles of
+    64 at D 192), q/k head dim 192 (128 + 64 rope), v zero past column 128
+    (``v_pad``), causal, no GQA."""
+    q, k, v = _bf16_operands(1, 2048, 2048, 4, 4, 192, 6)
+    v[..., 128:] = 0
+    got = wgmma_numerics(q, k, v)
+    want = t_attn.flash_attention_plain(q, k, v)
+    assert float(got[..., 128:].float().abs().max()) == 0.0
+    assert _err(got, want) <= BF16_ATOL, _err(got, want)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D", [(2, 256, 4, 4, 80), (1, 256, 8, 2, 128), (1, 256, 4, 4, 192)])
 def test_wgmma_numerics_match_the_pallas_kernel(B, S, H, KH, D):
     """The Pallas body rounds p to v's dtype too: the emulation and the JAX
-    kernel (interpret mode, 128-key blocks) compute the same formula."""
+    kernel (interpret mode, blocks of the kernel's key tile) compute the
+    same formula."""
     q, k, v = _bf16_operands(B, S, S, H, KH, D, D + H)
     as_jax = [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)]
-    pallas = j_attn_ops.flash_attention(*as_jax, causal=True, blk_q=128, blk_k=128)
+    blk = t_attn.key_tile(D)
+    assert S % blk == 0
+    pallas = j_attn_ops.flash_attention(*as_jax, causal=True, blk_q=128, blk_k=blk)
     pallas = torch.from_numpy(np.array(jnp.asarray(pallas, jnp.float32)))
     assert _err(wgmma_numerics(q, k, v), pallas) <= BF16_ATOL

@@ -495,7 +495,41 @@ def test_flash_attention_wgmma_route_other_head_dims(cuda, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("Sq,Skv", [(65, 1000), (1000, 65), (129, 130), (1, 300), (2048, 2048)])
+@pytest.mark.parametrize("D", [144, 192, 256])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_flash_attention_wgmma_route_past_head_dim_128(cuda, Sq, Skv, D, rep):
+    """Head dims over 128 on the tensor cores (64-key tiles): ragged Sq and
+    Skv, GQA 1 and 4, causal and not."""
+    for causal in (True, False):
+        _wgmma_case(cuda, 2, Sq, Skv, 2 * rep, 2, D, causal, Sq + Skv + D + rep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [144, 192, 256])
+def test_flash_attention_wgmma_route_mla_like_views(cuda, D):
+    """MLA's operands as views: q a slice of a wider projection, k a
+    ``k_full``-like slice of a buffer with rope columns past D, v zero past
+    column 128 (``v_pad``); TMA reads them in place (no copy)."""
+    rng = np.random.default_rng(D)
+    B, S, H = 2, 300, 8
+    wide = torch.as_tensor(rng.normal(size=(B, S, H, D + 64)).astype(np.float32), device=cuda)
+    q = wide.to(torch.bfloat16)[..., :D]
+    k = torch.as_tensor(rng.normal(size=(B, S, H, D + 32)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)[..., 32:]
+    v = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32), device=cuda).to(torch.bfloat16)
+    v[..., 128:] = 0
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = tattn.flash_attention_kernel(q, k, v)
+    assert tattn.flash_attention_kernel.launches_by_route == {"wgmma": 1, "cuda_cores": 0}
+    assert tattn.flash_attention_kernel.copies == 0
+    torch.cuda.synchronize()
+    assert float(got[..., 128:].float().abs().max()) == 0.0
+    _close(got, tattn.flash_attention_plain(q, k, v), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 80, 128, 192])
 def test_flash_attention_wgmma_route_strided_operands(cuda, D):
     """The fused-qkv views load through TMA in place: no copy."""
     rng = np.random.default_rng(3)
@@ -527,7 +561,7 @@ def test_flash_attention_wgmma_route_copies_misaligned_operands(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [72, 136, 192, 256])
+@pytest.mark.parametrize("D", [72, 136, 200])
 def test_flash_attention_bf16_outside_wgmma_takes_cuda_cores(cuda, D):
     rng = np.random.default_rng(D)
     q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda).to(torch.bfloat16)
@@ -691,7 +725,7 @@ def _vjp(fn, args, cots):
 @pytest.mark.parametrize("shape,dtype,causal,tol", [
     ((2, 512, 8, 8, 80), torch.bfloat16, True, 3e-2),     # zamba2's heads, wgmma
     ((2, 300, 8, 2, 128), torch.bfloat16, True, 3e-2),    # granite's GQA, ragged
-    ((1, 256, 4, 4, 192), torch.bfloat16, False, 3e-2),   # MLA's head dim, CUDA cores
+    ((1, 256, 4, 4, 192), torch.bfloat16, False, 3e-2),   # MLA's head dim, wgmma (64-key tiles)
     ((2, 200, 4, 2, 64), torch.float32, True, 1e-4),      # float32, CUDA cores
 ])
 def test_flash_attention_backward_on_the_card(cuda, shape, dtype, causal, tol):
