@@ -1,0 +1,13 @@
+"""attn_bwd_ms_per_step.train: device milliseconds of the program's
+``flash_attention.bwd`` spans
+(``kernels/attention/ops.py::FlashAttention.backward``: #6's torch-ops
+backward) in the device-only traced stretch, per training step
+(``bench/spans.py``: the stream's time from a span's start to its end)."""
+from perfbench.bench import spans
+
+before_stretch = spans.before_stretch
+
+
+def read(run):
+    ms = spans.device_ms(run, "flash_attention.bwd")
+    return None if ms is None else ms / len(run.traced["units"])

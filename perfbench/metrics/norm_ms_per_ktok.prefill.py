@@ -1,0 +1,13 @@
+"""norm_ms_per_ktok.prefill: device milliseconds of the program's
+``rmsnorm`` spans (``models/layers.py::rmsnorm``: the layers' ``ln1``,
+the FFN's ``ln2``) in the device-only traced stretch, per thousand
+prompt tokens (``bench/spans.py``: the stream's time from a span's start
+to its end)."""
+from perfbench.bench import spans
+
+before_stretch = spans.before_stretch
+
+
+def read(run):
+    ms = spans.device_ms(run, "rmsnorm")
+    return None if ms is None else ms / (run.traced["tokens"] / 1e3)

@@ -1,0 +1,12 @@
+"""rope_ms_per_ktok.prefill: device milliseconds of the program's ``rope``
+spans (``models/layers.py::rope``, q's and k's) in the device-only
+traced stretch, per thousand prompt tokens (``bench/spans.py``: the
+stream's time from a span's start to its end)."""
+from perfbench.bench import spans
+
+before_stretch = spans.before_stretch
+
+
+def read(run):
+    ms = spans.device_ms(run, "rope")
+    return None if ms is None else ms / (run.traced["tokens"] / 1e3)

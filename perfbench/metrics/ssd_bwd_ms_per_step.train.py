@@ -1,0 +1,12 @@
+"""ssd_bwd_ms_per_step.train: device milliseconds of the program's
+``ssd_intra.bwd`` spans (``kernels/ssd/ops.py::SSDIntra.backward``: #7's
+torch-ops backward) in the device-only traced stretch, per training step
+(``bench/spans.py``: the stream's time from a span's start to its end)."""
+from perfbench.bench import spans
+
+before_stretch = spans.before_stretch
+
+
+def read(run):
+    ms = spans.device_ms(run, "ssd_intra.bwd")
+    return None if ms is None else ms / len(run.traced["units"])

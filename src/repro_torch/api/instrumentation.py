@@ -28,6 +28,8 @@ from __future__ import annotations
 import contextlib
 import time
 
+from repro_torch.core import trace
+
 
 class Instrumentation:
     """Collects per-phase wall times and scalar stats for one run."""
@@ -37,10 +39,13 @@ class Instrumentation:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        """Time a phase; re-entering the same name accumulates."""
+        """Time a phase; re-entering the same name accumulates.  The phase
+        is also a span named ``name`` (``core/trace.py``), so it shows in
+        the profiler's traces."""
         t0 = time.perf_counter()
         try:
-            yield
+            with trace.span(name):
+                yield
         finally:
             key = f"t_{name}"
             self.stats[key] = self.stats.get(key, 0.0) + time.perf_counter() - t0

@@ -230,12 +230,14 @@ def launch(path: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, Skv, H, KH, D = check_operands(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dtype = () if path == "wgmma" else (_DTYPES[q.dtype],)
-    err = _launcher(path)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, H, KH, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), *dtype, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    # the launcher runs on the thread's current card: make it the operands'
+    with torch.cuda.device(q.device):
+        err = _launcher(path)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, H, KH, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), *dtype, torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _build.check(err, f"flash_attention_kernel ({path})")
     return out
 
@@ -275,5 +277,3 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
 flash_attention_kernel.copies = 0
-# calls of :func:`flash_attention_bwd` through the autograd op (``ops.py``)
-flash_attention_kernel.backward_calls = 0

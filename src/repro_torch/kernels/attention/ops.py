@@ -12,13 +12,14 @@ entry point (``models/layers.chunked_attention``) calls this op.
 The op is differentiable: a ``torch.autograd.Function`` whose forward is
 the wrapper and whose backward is :func:`~repro_torch.kernels.attention.
 kernel.flash_attention_bwd` (torch ops on the inputs and the saved
-output), on every device, so the CPU runs the backward the card runs.
-Each backward adds one to ``flash_attention_kernel.backward_calls``.
+output), on every device, so the CPU runs the backward the card runs, in a
+``flash_attention.bwd`` span.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels.attention.kernel import flash_attention_bwd, flash_attention_kernel
 
 
@@ -36,8 +37,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        flash_attention_kernel.backward_calls += 1
-        return (*flash_attention_bwd(q, k, v, out, dout, causal=ctx.causal), None)
+        with trace.span("flash_attention.bwd"):
+            return (*flash_attention_bwd(q, k, v, out, dout, causal=ctx.causal), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

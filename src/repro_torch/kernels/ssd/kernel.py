@@ -229,12 +229,14 @@ def launch(path: str, x, cum, dt, B_, C_, *, bf16_intra: bool = False):
         hg, last = heads_per_block(BC, H, P, N, _sms(x.device)), int(bf16_intra)
     else:
         hg, last = HEADS_PER_BLOCK, _DTYPES[x.dtype]
-    err = _launcher(path)(
-        x.data_ptr(), cum.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-        y.data_ptr(), state.data_ptr(), cdecay.data_ptr(),
-        BC, Q, H, P, N, hg, last,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    # the launcher runs on the thread's current card: make it the operands'
+    with torch.cuda.device(x.device):
+        err = _launcher(path)(
+            x.data_ptr(), cum.data_ptr(), dt.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            y.data_ptr(), state.data_ptr(), cdecay.data_ptr(),
+            BC, Q, H, P, N, hg, last,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(err, f"ssd_intra ({path})")
     return y, state, cdecay
 
@@ -274,5 +276,3 @@ def ssd_intra(x, cum, dt, B_, C_, *, bf16_intra: bool = False):
 
 ssd_intra.launches = 0
 ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
-# calls of :func:`ssd_intra_bwd` through the autograd op (``ops.py``)
-ssd_intra.backward_calls = 0

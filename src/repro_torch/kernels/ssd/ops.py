@@ -13,13 +13,14 @@ calls this op.
 The op is differentiable: the intra-chunk step is a
 ``torch.autograd.Function`` whose forward is the wrapper and whose
 backward is :func:`~repro_torch.kernels.ssd.kernel.ssd_intra_bwd`, on every
-device; the rest of the scan is torch ops.  Each backward adds one to
-``ssd_intra.backward_calls``.
+device, in an ``ssd_intra.bwd`` span; the rest of the scan is torch ops,
+its chunk recurrence and inter-chunk output in an ``ssd.scan`` span.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels.ssd.kernel import ssd_intra, ssd_intra_bwd
 
 
@@ -36,8 +37,8 @@ class SSDIntra(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate, dcdecay):
-        ssd_intra.backward_calls += 1
-        grads = ssd_intra_bwd(*ctx.saved_tensors, dy, dstate, dcdecay, bf16_intra=ctx.bf16_intra)
+        with trace.span("ssd_intra.bwd"):
+            grads = ssd_intra_bwd(*ctx.saved_tensors, dy, dstate, dcdecay, bf16_intra=ctx.bf16_intra)
         return (*grads, None)
 
 
@@ -69,17 +70,18 @@ def ssd_scan(x, dt, A, B_, C_, D, *, chunk: int, bf16_intra: bool, intra):
     states = states.reshape(Bz, nc, H, P, N)
     chunk_decay = cdecay.reshape(Bz, nc, H)
 
-    # the state before each chunk: s_c = s_{c-1} * decay_c + states_c, the
-    # recurrence the reference evaluates with an associative scan
-    s = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
-    s_prev = []
-    for c in range(nc):
-        s_prev.append(s)
-        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
-    s_prev = torch.stack(s_prev, dim=1)  # [B, nc, H, P, N]
+    with trace.span("ssd.scan"):
+        # the state before each chunk: s_c = s_{c-1} * decay_c + states_c,
+        # the recurrence the reference evaluates with an associative scan
+        s = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+        s_prev = []
+        for c in range(nc):
+            s_prev.append(s)
+            s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+        s_prev = torch.stack(s_prev, dim=1)  # [B, nc, H, P, N]
 
-    Cc = C_.reshape(Bz, nc, chunk, N).float()
-    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, s_prev) * torch.exp(cum)[..., None]
+        Cc = C_.reshape(Bz, nc, chunk, N).float()
+        y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, s_prev) * torch.exp(cum)[..., None]
     y = (y_intra.reshape(Bz, nc, chunk, H, P) + y_inter).reshape(Bz, S, H, P)
     y = y + x.float() * D[None, None, :, None]
     return y.to(x.dtype), s

@@ -21,6 +21,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.core.compat import P
 from repro_torch.kernels.attention.ops import flash_attention
 
@@ -120,24 +121,27 @@ def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """The reference's dispatcher: ``REPRO_RMSNORM=ref`` selects the
     plain-autodiff :func:`rmsnorm_ref`; the default is :func:`rmsnorm_fused`.
-    Both forwards compute the same values."""
-    if os.environ.get("REPRO_RMSNORM", "fused") == "ref":
-        return rmsnorm_ref(x, w, eps)
-    return rmsnorm_fused(x, w, eps)
+    Both forwards compute the same values, each in an ``rmsnorm`` span."""
+    with trace.span("rmsnorm"):
+        if os.environ.get("REPRO_RMSNORM", "fused") == "ref":
+            return rmsnorm_ref(x, w, eps)
+        return rmsnorm_fused(x, w, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x [..., S, H, D] (D even), positions [..., S] -> x rotated (the two
-    halves of D, as in the reference), computed in float32."""
-    d_half = x.shape[-1] // 2
-    freqs = torch.exp(
-        -math.log(theta) * torch.arange(d_half, dtype=torch.float32, device=x.device) / d_half
-    )
-    ang = positions[..., None].float() * freqs  # [..., S, D/2]
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+    halves of D, as in the reference), computed in float32; a ``rope``
+    span."""
+    with trace.span("rope"):
+        d_half = x.shape[-1] // 2
+        freqs = torch.exp(
+            -math.log(theta) * torch.arange(d_half, dtype=torch.float32, device=x.device) / d_half
+        )
+        ang = positions[..., None].float() * freqs  # [..., S, D/2]
+        cos = torch.cos(ang)[..., None, :]
+        sin = torch.sin(ang)[..., None, :]
+        x1, x2 = x.float().chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict, prefix: str = "") -> torch.Tensor:

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.core.compat import Placement
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers as L
@@ -311,12 +312,13 @@ def ffn_block(x, p, cfg: ModelConfig, mesh=None):
     ``_ffn_decode``): ``x + ffn(rmsnorm(x, ln2))``, the FFN a SwiGLU MLP
     or, in an MoE layer, :func:`moe_block` (expert-parallel over ``mesh``
     when one is given).  Returns (x, the layer's aux loss, or None for an
-    MLP)."""
-    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if cfg.family == "moe":
-        mo, aux = moe.moe_block(h, p["moe"], cfg, mesh)
-        return x + mo, aux
-    return x + L.swiglu_mlp(h, p["mlp"]), None
+    MLP).  An ``ffn`` span."""
+    with trace.span("ffn"):
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            mo, aux = moe.moe_block(h, p["moe"], cfg, mesh)
+            return x + mo, aux
+        return x + L.swiglu_mlp(h, p["mlp"]), None
 
 
 def apply_shared_block(x, sp, cfg: ModelConfig, positions, mesh=None):
@@ -355,15 +357,17 @@ def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _layer(x, aux, lp, i, shared, cfg: ModelConfig, positions, mesh):
-    """Layer ``i`` (and the hybrid's shared block where it follows)."""
-    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    if cfg.family in ("ssm", "hybrid"):
-        x = x + mamba_block(h, lp["mamba"], cfg)
-        if shared_after(cfg, i):
-            x = apply_shared_block(x, shared, cfg, positions, mesh)
-        return x, aux
-    x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg, mesh)
-    return x, aux if a is None else aux + a
+    """Layer ``i`` (and the hybrid's shared block where it follows), a
+    ``layer`` span: in training the backward's recompute opens it again."""
+    with trace.span("layer"):
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        if cfg.family in ("ssm", "hybrid"):
+            x = x + mamba_block(h, lp["mamba"], cfg)
+            if shared_after(cfg, i):
+                x = apply_shared_block(x, shared, cfg, positions, mesh)
+            return x, aux
+        x, a = ffn_block(x + attention_block(h, lp["attn"], cfg, positions), lp, cfg, mesh)
+        return x, aux if a is None else aux + a
 
 
 def units(cfg: ModelConfig) -> list:

@@ -22,13 +22,15 @@ the reference's serving CLI does.  Both take an optional mesh, as the
 reference's do: the MoE layers then run expert-parallel over it
 (``models/moe.py``: each data shard of the batch routed at its own
 capacity, each model rank its E/tp experts), the rest of the step and the
-cache on the tokens' device.
+cache on the tokens' device.  Each iteration of either step's layer loop
+is a ``layer`` span (``core/trace.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.models import layers as L
 from repro_torch.models.attention import gqa_attention, gqa_decode, mla_attention, mla_decode
 from repro_torch.models.mamba import mamba_decode_step, mamba_prefill
@@ -47,25 +49,26 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         x = params["embed"].to(L.COMPUTE_DTYPE)[tokens]  # [B,1,d]
         shared = params.get("shared")
         for i in range(cfg.num_layers):
-            lp = layer_params(params["blocks"], i)
-            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            if cfg.family in ("ssm", "hybrid"):
-                state = {k: cache[k][i] for k in _SSM_STATE}
-                y, new = mamba_decode_step(h, state, lp["mamba"], cfg)
-                x = x + y
-                for k in _SSM_STATE:
-                    cache[k][i].copy_(new[k])
-                if shared_after(cfg, i):
-                    g = i // cfg.shared_attn_every
-                    h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
-                    o, _, _ = gqa_decode(h, shared["attn"], cfg, cache["sk"][g], cache["sv"][g], pos)
-                    x, _ = ffn_block(x + o, shared, cfg, mesh)
-            else:
-                if cfg.attn == "mla":
-                    o, _, _ = mla_decode(h, lp["attn"], cfg, cache["c_kv"][i], cache["k_rope"][i], pos)
+            with trace.span("layer"):
+                lp = layer_params(params["blocks"], i)
+                h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+                if cfg.family in ("ssm", "hybrid"):
+                    state = {k: cache[k][i] for k in _SSM_STATE}
+                    y, new = mamba_decode_step(h, state, lp["mamba"], cfg)
+                    x = x + y
+                    for k in _SSM_STATE:
+                        cache[k][i].copy_(new[k])
+                    if shared_after(cfg, i):
+                        g = i // cfg.shared_attn_every
+                        h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
+                        o, _, _ = gqa_decode(h, shared["attn"], cfg, cache["sk"][g], cache["sv"][g], pos)
+                        x, _ = ffn_block(x + o, shared, cfg, mesh)
                 else:
-                    o, _, _ = gqa_decode(h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos)
-                x, _ = ffn_block(x + o, lp, cfg, mesh)
+                    if cfg.attn == "mla":
+                        o, _, _ = mla_decode(h, lp["attn"], cfg, cache["c_kv"][i], cache["k_rope"][i], pos)
+                    else:
+                        o, _, _ = gqa_decode(h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos)
+                    x, _ = ffn_block(x + o, lp, cfg, mesh)
         cache["pos"] = pos + 1
         return lm_logits(x, params, cfg), cache
 
@@ -85,29 +88,30 @@ def prefill_with_cache(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: 
     cache = init_cache(cfg, B, max_len, x.device)
     shared = params.get("shared")
     for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.family in ("ssm", "hybrid"):
-            y, st = mamba_prefill(h, lp["mamba"], cfg)
-            x = x + y
-            for k in _SSM_STATE:
-                cache[k][i].copy_(st[k])
-            if shared_after(cfg, i):
-                inv = i // cfg.shared_attn_every
-                h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
-                o, kf, vf = gqa_attention(h, shared["attn"], cfg, positions, return_kv=True)
-                cache["sk"][inv, :, :S].copy_(kf)
-                cache["sv"][inv, :, :S].copy_(vf)
-                x, _ = ffn_block(x + o, shared, cfg, mesh)
-        elif cfg.attn == "mla":
-            o, ck, kr = mla_attention(h, lp["attn"], cfg, positions, return_kv=True)
-            cache["c_kv"][i, :, :S].copy_(ck)
-            cache["k_rope"][i, :, :S].copy_(kr)
-            x, _ = ffn_block(x + o, lp, cfg, mesh)
-        else:
-            o, kf, vf = gqa_attention(h, lp["attn"], cfg, positions, return_kv=True)
-            cache["k"][i, :, :S].copy_(kf)
-            cache["v"][i, :, :S].copy_(vf)
-            x, _ = ffn_block(x + o, lp, cfg, mesh)
+        with trace.span("layer"):
+            lp = layer_params(params["blocks"], i)
+            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            if cfg.family in ("ssm", "hybrid"):
+                y, st = mamba_prefill(h, lp["mamba"], cfg)
+                x = x + y
+                for k in _SSM_STATE:
+                    cache[k][i].copy_(st[k])
+                if shared_after(cfg, i):
+                    inv = i // cfg.shared_attn_every
+                    h = L.rmsnorm(x, shared["ln1"], cfg.norm_eps)
+                    o, kf, vf = gqa_attention(h, shared["attn"], cfg, positions, return_kv=True)
+                    cache["sk"][inv, :, :S].copy_(kf)
+                    cache["sv"][inv, :, :S].copy_(vf)
+                    x, _ = ffn_block(x + o, shared, cfg, mesh)
+            elif cfg.attn == "mla":
+                o, ck, kr = mla_attention(h, lp["attn"], cfg, positions, return_kv=True)
+                cache["c_kv"][i, :, :S].copy_(ck)
+                cache["k_rope"][i, :, :S].copy_(kr)
+                x, _ = ffn_block(x + o, lp, cfg, mesh)
+            else:
+                o, kf, vf = gqa_attention(h, lp["attn"], cfg, positions, return_kv=True)
+                cache["k"][i, :, :S].copy_(kf)
+                cache["v"][i, :, :S].copy_(vf)
+                x, _ = ffn_block(x + o, lp, cfg, mesh)
     cache["pos"].fill_(S)
     return lm_logits(x[:, -1:], params, cfg), cache

@@ -18,6 +18,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import trace
+
 BLOCK = 256
 # elements of a leaf updated at once: bounds the float32 temporaries of a
 # stacked leaf (the update is elementwise and the int8 blocks run along the
@@ -128,35 +130,37 @@ def row_slices(p: torch.Tensor):
 def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: OptConfig):
     """-> (params, opt_state, metrics {"grad_norm", "lr"}): the reference's
     update (global-norm clipping, bias-corrected moments, decoupled weight
-    decay, warmup), computed in float32 and written in place."""
-    step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = _lr_schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    stepf = step.float()
-    bc1 = 1.0 - b1 ** stepf
-    bc2 = 1.0 - b2 ** stepf
+    decay, warmup), computed in float32 and written in place; an
+    ``adamw_update`` span."""
+    with trace.span("adamw_update"):
+        step = opt_state["step"] + 1
+        gnorm = global_norm(grads)
+        clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        lr = _lr_schedule(cfg, step)
+        b1, b2 = cfg.beta1, cfg.beta2
+        stepf = step.float()
+        bc1 = 1.0 - b1 ** stepf
+        bc2 = 1.0 - b2 ** stepf
 
-    def upd(p, g, m, v):
-        g = g.float() * clip
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.float()
-        p.copy_((pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype))
-        return m, v
+        def upd(p, g, m, v):
+            g = g.float() * clip
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            pf = p.float()
+            p.copy_((pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype))
+            return m, v
 
-    for p, g, mom in _by_key(params, grads, opt_state["moments"]):
-        for sl in row_slices(p):
-            ps = p[sl]
-            if cfg.state_bits != 8:
-                mom["m"][sl], mom["v"][sl] = upd(ps, g[sl], mom["m"][sl], mom["v"][sl])
-                continue
-            m, v = upd(ps, g[sl], *(dequantize_block_int8(
-                {"q": mom[k]["q"][sl], "scale": mom[k]["scale"][sl]}, ps.shape) for k in ("m", "v")))
-            for k, new in (("m", m), ("v", v)):
-                qs = quantize_block_int8(new)
-                mom[k]["q"][sl], mom[k]["scale"][sl] = qs["q"], qs["scale"]
-    opt_state["step"] = step
-    return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+        for p, g, mom in _by_key(params, grads, opt_state["moments"]):
+            for sl in row_slices(p):
+                ps = p[sl]
+                if cfg.state_bits != 8:
+                    mom["m"][sl], mom["v"][sl] = upd(ps, g[sl], mom["m"][sl], mom["v"][sl])
+                    continue
+                m, v = upd(ps, g[sl], *(dequantize_block_int8(
+                    {"q": mom[k]["q"][sl], "scale": mom[k]["scale"][sl]}, ps.shape) for k in ("m", "v")))
+                for k, new in (("m", m), ("v", v)):
+                    qs = quantize_block_int8(new)
+                    mom[k]["q"][sl], mom[k]["scale"][sl] = qs["q"], qs["scale"]
+        opt_state["step"] = step
+        return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -27,6 +27,11 @@ returns.  ``compress_grads`` runs ``ef_compress`` on the averaged
 gradients, as the reference does.  Without a mesh the step is one data
 shard: at ``grad_accum`` = 1 its gradients go to the optimizer in their
 dtypes, with no float32 copy and no ``psum``.
+
+Spans (``core/trace.py``): ``forward`` around the loss and ``backward``
+around ``torch.autograd.grad`` (the recompute's ``layer`` spans and the
+kernels' backwards open under it), ``grad_accumulate`` around the float32
+sums, and the optimizer's ``adamw_update``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import compat
+from repro_torch.core import compat, trace
 from repro_torch.models.layers import dp_axes
 from repro_torch.models.model import AUX_LOSS_COEF, loss_fn
 from repro_torch.train import compression as comp
@@ -81,9 +86,11 @@ def loss_and_grads(params: dict, inputs: dict, cfg: ModelConfig, mesh=None, *, c
     AUX_LOSS_COEF * aux`` (a data shard's part of a data-parallel step)."""
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
-        loss, metrics = loss_fn(_like(params, flat), inputs, cfg, mesh)
-        target = loss if ce_weight is None else ce_weight * metrics["ce"] + AUX_LOSS_COEF * metrics["aux"]
-        grads = torch.autograd.grad(target, flat, allow_unused=True, materialize_grads=True)
+        with trace.span("forward"):
+            loss, metrics = loss_fn(_like(params, flat), inputs, cfg, mesh)
+            target = loss if ce_weight is None else ce_weight * metrics["ce"] + AUX_LOSS_COEF * metrics["aux"]
+        with trace.span("backward"):
+            grads = torch.autograd.grad(target, flat, allow_unused=True, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, _like(params, list(grads))
 
 
@@ -158,19 +165,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             loss, per_shard = _shard_grads(params, mb, cfg, mesh, shards)
             if n * accum == 1:
                 acc = per_shard
-            elif acc is None:
-                acc = [[g.float() for g in shard] for shard in per_shard]
             else:
-                for a_shard, g_shard in zip(acc, per_shard):
-                    for a, g in zip(a_shard, g_shard):
-                        a += g.float()
+                with trace.span("grad_accumulate"):
+                    if acc is None:
+                        acc = [[g.float() for g in shard] for shard in per_shard]
+                    else:
+                        for a_shard, g_shard in zip(acc, per_shard):
+                            for a, g in zip(a_shard, g_shard):
+                                a += g.float()
             l_sum = l_sum + loss
             del per_shard
         if n == 1:
             flat = acc[0]
             if accum > 1:
-                for a in flat:
-                    a /= accum
+                with trace.span("grad_accumulate"):
+                    for a in flat:
+                        a /= accum
         else:
             # one psum a leaf over the data axes: each rank holds its shard's sums
             shard_of = {r: j for j, (ranks, _, _) in enumerate(shards) for r in ranks}

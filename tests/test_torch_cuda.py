@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from repro_torch.api import AnotherMeEngine, EngineConfig
-from repro_torch.core import minhash_candidates, run_anotherme, type_codes
+from repro_torch.core import minhash_candidates, run_anotherme, trace, type_codes
 from repro_torch.core.brp import brp_bucket_keys
 from repro_torch.core.shingling import num_shingles
 from repro_torch.data import synthetic_setup
@@ -65,7 +65,6 @@ def cuda():
     tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     tattn.flash_attention_kernel.copies = 0
     tssd.ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
-    tattn.flash_attention_kernel.backward_calls = tssd.ssd_intra.backward_calls = 0
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -738,9 +737,10 @@ def test_flash_attention_backward_on_the_card(cuda, shape, dtype, causal, tol):
     q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=cuda).to(dtype)
                for sh in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D)))
     dout = torch.as_tensor(rng.normal(size=(B, S, H, D)).astype(np.float32), device=cuda)
-    got = _vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v), (dout,))
+    with trace.counting() as calls:
+        got = _vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v), (dout,))
     assert tattn.flash_attention_kernel.launches == 1
-    assert tattn.flash_attention_kernel.backward_calls == 1
+    assert (trace.calls(calls, "flash_attention.bwd"), trace.calls(calls, "ssd_intra.bwd")) == (1, 0)
     want = _vjp(lambda q, k, v: tattn.flash_attention_plain(q, k, v, causal=causal),
                 [t.float() for t in (q, k, v)], (dout,))
     for g, w in zip(got, want):
@@ -769,9 +769,11 @@ def test_ssd_backward_on_the_card(cuda, dtype, bf16_intra, tol):
     # y comes out in x's dtype, so its cotangent enters in that dtype: both
     # runs get it rounded so
     cots = (f(rng.normal(size=(B, S, H, P))).to(dtype).float(), f(rng.normal(size=(B, H, P, N))))
-    got = _vjp(lambda *a: tssd_ops.ssd_chunked(*a, chunk=128, bf16_intra=bf16_intra),
-               (x, dt, A, Bm, Cm, D), cots)
-    assert tssd.ssd_intra.launches == 1 and tssd.ssd_intra.backward_calls == 1
+    with trace.counting() as calls:
+        got = _vjp(lambda *a: tssd_ops.ssd_chunked(*a, chunk=128, bf16_intra=bf16_intra),
+                   (x, dt, A, Bm, Cm, D), cots)
+    assert tssd.ssd_intra.launches == 1
+    assert (trace.calls(calls, "flash_attention.bwd"), trace.calls(calls, "ssd_intra.bwd")) == (0, 1)
     want = _vjp(lambda *a: tssd_ref.ssd_chunked(*a, chunk=128, bf16_intra=bf16_intra),
                 [t.float() for t in (x, dt, A, Bm, Cm, D)], cots)
     for name, g, w in zip(("x", "dt", "A", "B", "C", "D"), got, want):

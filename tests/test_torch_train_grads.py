@@ -64,6 +64,7 @@ import repro_torch.models.layers as tL
 import repro_torch.models.model as tmodel
 import repro_torch.models.moe as tmoe
 from repro_torch.configs import all_archs, get_config
+from repro_torch.core import trace
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels.attention import kernel as tattn
 from repro_torch.kernels.attention.ops import flash_attention
@@ -184,9 +185,9 @@ def test_flash_attention_bwd_vs_jax(case):
         ref = lambda q, k, v: jL.chunked_attention(q, k, v, causal=causal)  # noqa: E731
     out, vjp = jax.vjp(jax.jit(ref), *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(dout))
-    before = tattn.flash_attention_kernel.backward_calls
-    got = torch_vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (T(q), T(k), T(v)), (T(dout),))
-    assert tattn.flash_attention_kernel.backward_calls == before + 1
+    with trace.counting() as calls:
+        got = torch_vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (T(q), T(k), T(v)), (T(dout),))
+    assert (trace.calls(calls, "flash_attention.bwd"), trace.calls(calls, "ssd_intra.bwd")) == (1, 0)
     for name, g, w in zip("qkv", got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert rel_l2(g, w) <= 1e-4, (name, rel_l2(g, w))
@@ -225,10 +226,9 @@ def _ssd_inputs(seed, S, H, P, N, *, a_range=(1.0, 16.0), dt_range=(1e-3, 1e-1))
 def _ssd_grads(args, cots, chunk):
     _, vjp = jax.vjp(jax.jit(lambda *a: jM._ssd_chunked(*a, chunk=chunk)), *map(jnp.asarray, args))
     want = vjp(tuple(map(jnp.asarray, cots)))
-    before = tssd.ssd_intra.backward_calls
-    got = torch_vjp(lambda *a: tssd.ssd_chunked(*a, chunk=chunk), [T(a) for a in args],
-                    [T(c) for c in cots])
-    assert tssd.ssd_intra.backward_calls == before + 1
+    with trace.counting() as calls:
+        got = torch_vjp(lambda *a: tssd.ssd_chunked(*a, chunk=chunk), [T(a) for a in args], [T(c) for c in cots])
+    assert (trace.calls(calls, "flash_attention.bwd"), trace.calls(calls, "ssd_intra.bwd")) == (0, 1)
     return got, want
 
 
