@@ -230,13 +230,16 @@ phases, and exits non-zero if any phase fails:
    operands on both routes beside its plain version, with the tensor-core
    source's ptxas registers, spills and HGMMA count.
 
-23. train kernels — each kernel's autograd op (the kernel forward, a
-   torch-ops backward) against autograd through its plain version in
-   float32, on the card: #6 at zamba2's [2, 4096, 32, 80] and granite's
-   [2, 4096, 32/8, 128] (bfloat16, causal; dq, dk, dv within 3e-2
-   relative L2), #7 at zamba2's [64, 128, 80, 64] on both routes (1e-4)
-   and under ``bf16_intra`` (5e-2); the forward, the backward and SDPA's
-   forward + backward timed.
+23. train kernels — each kernel's autograd op (the kernel forward; #6's
+   hand-written bf16 backward, #7's torch-ops one) against autograd
+   through its plain version in float32, on the card: #6 at [2, 4096, 32,
+   80], granite's [2, 4096, 32/8, 128] and the zamba2-train-4k cell's
+   [2, 4096, 32, 160] (bfloat16, causal; dq, dk, dv within 3e-2 relative
+   L2), #7 at zamba2's [64, 128, 80, 64] on both routes (1e-4) and under
+   ``bf16_intra`` (5e-2); the forward (with and without the logsumexp),
+   #6's backward on both routes (the wgmma kernels and
+   ``flash_attention_bwd``) beside its bound, and SDPA's forward +
+   backward timed.
 24. train small — reduced granite-3-8b, mamba2-1.3b, zamba2-2.7b and
    deepseek-v2-236b: the loss and every gradient leaf on the card against
    the CPU (5e-2; every leaf finite and nonzero; equal MoE drops), and a
@@ -431,7 +434,7 @@ def phase_build():
     log(f"build: {len(logs)} sources in {secs:.2f} s")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     figures = {}
-    for name in ("flash_attention_sm90", "ssd_intra_sm90"):
+    for name in ("flash_attention_sm90", "flash_attention_bwd_sm90", "ssd_intra_sm90"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
         hgmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HGMMA" in line]
@@ -449,17 +452,33 @@ def phase_build():
         log("flash_attention_sm90: built before this run; its ptxas report is not checked")
     else:
         check("?" not in flash, f"flash_attention_sm90: a serialized wgmma outside an instantiation {flash}")
-        ks = {k: int(k.split(",")[0]) for k in flash}
+        ks = {k: _template_args(k)[0] for k in flash}
         wide = {k: v for k, v in flash.items() if ks[k] > 8}
-        check(len(wide) == 8, f"flash_attention_sm90: instantiations past D = 128 {sorted(wide)}")
+        # eight head dims, each with and without the logsumexp (kLse)
+        check(len(wide) == 16, f"flash_attention_sm90: instantiations past D = 128 {sorted(wide)}")
         for key, v in wide.items():
             check(v.get("spill_store_bytes") == 0, f"flash_attention_sm90 <{key}>: spills {v}")
             check(not v.get("serialized"), f"flash_attention_sm90 <{key}>: {v.get('serialized')}")
-        log("flash_attention_sm90 ptxas (<KS, NS, NC>: registers, spill-store bytes): "
+        log("flash_attention_sm90 ptxas (<KS, NS, kLse, NC>: registers, spill-store bytes): "
             + ", ".join(f"{k} {flash[k].get('registers')} {flash[k].get('spill_store_bytes')}"
                         for k in sorted(flash, key=ks.get))
             + "; no spill and no serialized wgmma past D = 128; built in "
             + f"{figures['flash_attention_sm90']['build_s']} s")
+    # #6's backward: every kernel of every chunk count without spills or a
+    # serialized wgmma
+    bwd = figures["flash_attention_bwd_sm90"]["kernels"]
+    if "flash_attention_bwd_sm90" not in logs:
+        log("flash_attention_bwd_sm90: built before this run; its ptxas report is not checked")
+    else:
+        # dK/dV and dQ at each of the 16 head dims
+        check(len([k for k in bwd if "_sm90_kernel<" in k]) == 32,
+              f"flash_attention_bwd_sm90: instantiations {sorted(bwd)}")
+        for key, v in bwd.items():
+            check(v.get("spill_store_bytes") == 0, f"flash_attention_bwd_sm90 {key}: spills {v}")
+            check(not v.get("serialized"), f"flash_attention_bwd_sm90 {key}: {v.get('serialized')}")
+        log("flash_attention_bwd_sm90 ptxas (registers, spill-store bytes): "
+            + ", ".join(f"{k} {v.get('registers')} {v.get('spill_store_bytes')}" for k, v in sorted(bwd.items()))
+            + f"; no spill and no serialized wgmma; built in {figures['flash_attention_bwd_sm90']['build_s']} s")
     for name, width in (("fused_score", 10), ("fused_windowed_score", SUB_WINDOW)):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
@@ -473,7 +492,7 @@ def phase_build():
                       for width in (10, SUB_WINDOW)}
     # the shingle kernel at the timed order (k = 3, shuffle route): no spills
     shingle = _ptxas_by_kernel(logs.get("shingle", ""))
-    path = shingle.get("3,0,0", {})
+    path = shingle.get("shingle_rows<3,0,0>", {})
     check(path.get("spill_store_bytes", 0) == 0, f"shingle k=3: spills {path}")
     log(f"shingle ptxas at k=3, L <= 32: {path}")
     figures["shingle"] = dict(ptxas_path=path, ptxas_registers_spills={
@@ -519,7 +538,9 @@ def _register_kernel_figures(name, sass, build_log, width, refused=("LDS", "STS"
     diff.subtract(by_opcode(loads))
     per_cell = (len(engine) - len(loads)) / width ** 2
     ptxas = _ptxas_by_kernel(build_log)
-    path = ptxas.get(f"{width},{engine_flags}", {})
+    # the register kernel (``*_regs``, as ``_sass_by_kernel`` reads it)
+    path = next((v for k, v in ptxas.items() if k.split("<")[0].endswith("_regs")
+                 and _template_args(k) == [width, engine_flags]), {})
     log(f"{name} SASS at W={width}: {len(engine)} instructions ({len(loads)} loads-only), "
         f"{per_cell:.2f} a DP cell; the difference by opcode "
         f"{dict(+diff)}; no {'/'.join(refused)}; ptxas {path}")
@@ -529,18 +550,31 @@ def _register_kernel_figures(name, sass, build_log, width, refused=("LDS", "STS"
                 ptxas_path=path, ptxas_registers_spills=regs)
 
 
+def _kernel_key(mangled):
+    """A kernel's name and template arguments from its mangled name
+    ("flash_bwd_dq_sm90_kernel<3,1>", namespaces left out); the mangled
+    name itself where it names no function."""
+    name, i = None, 3 if mangled.startswith("_ZN") else 2
+    while mangled.startswith("_Z") and (m := re.compile(r"\d+").match(mangled, i)):
+        name, i = mangled[m.end():m.end() + int(m.group())], m.end() + int(m.group())
+    if not name:
+        return mangled
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', mangled))}>"
+
+
+def _template_args(key):
+    """The template arguments of a ``_kernel_key``, as integers."""
+    return [int(a) for a in key.partition("<")[2].rstrip(">").split(",") if a]
+
+
 def _ptxas_by_kernel(text):
     """ptxas's registers, spill-store bytes and wgmma serialization warnings
-    (``serialized``) for each instantiation in a build log, keyed by its
-    template arguments ("1,1,0")."""
+    (``serialized``) for each instantiation in a build log, keyed by
+    ``_kernel_key`` ("shingle_rows<3,0,0>")."""
     out, cur = {}, None
-
-    def key(mangled):
-        return ",".join(re.findall(r"L[ib](\d+)E", mangled)) or mangled
-
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            cur = key(m.group(1))
+            cur = _kernel_key(m.group(1))
             out.setdefault(cur, {})
         elif cur and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[cur]["spill_store_bytes"] = int(m.group(1))
@@ -548,7 +582,7 @@ def _ptxas_by_kernel(text):
             out[cur]["registers"] = int(m.group(1))
         if "wgmma" in line and "serialized" in line:  # the warning names its function
             m = re.search(r"function '(\S+?)'", line)
-            out.setdefault(key(m.group(1)) if m else (cur or "?"), {}).setdefault(
+            out.setdefault(_kernel_key(m.group(1)) if m else (cur or "?"), {}).setdefault(
                 "serialized", []).append(line.strip()[:200])
     return out
 
@@ -811,13 +845,19 @@ def _wrappers():
 
 def _counted(fn):
     """Call ``fn`` with every launch count set to 0 just before it; returns
-    (its result, the launch counts of this call)."""
+    (its result, the launch counts of this call).  #6's backward routes
+    (``flash_attention_backward.launches_by_route``) are reset too, for the
+    caller to read after."""
+    from repro_torch.kernels.attention import kernel as attention
+
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
     flash = wrappers["flash_attention_kernel"]
     flash.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     flash.copies = 0
+    attention.flash_attention_backward.launches_by_route = {"wgmma": 0, "torch_ops": 0}
+    attention.flash_attention_backward.copies = 0
     wrappers["ssd_intra"].launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     for name in ("lcs_kernel", "fused_gather_score", "fused_windowed_gather_score"):
         wrappers[name].launches_by_route = {"registers": 0, "shared": 0}
@@ -4000,8 +4040,10 @@ def _counted_train(fn):
 
 def _flash_train_row(torch, q, k, v, what):
     """#6's autograd op at one shape: its gradient against autograd through
-    the plain version in float32 (3e-2 relative L2); the forward kernel,
-    ``flash_attention_bwd`` and SDPA's forward + backward timed."""
+    the plain version in float32 (3e-2 relative L2), on the wgmma backward;
+    the forward kernel (with and without the logsumexp), the backward on
+    both routes (the wgmma kernels, ``flash_attention_bwd``'s torch ops) and
+    SDPA's forward + backward timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import kernel as attn
@@ -4009,16 +4051,21 @@ def _flash_train_row(torch, q, k, v, what):
 
     rng_dout = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(1),
                            device=q.device)
+    before = dict(attn.flash_attention_backward.launches_by_route)
     got = _vjp(torch, lambda q, k, v: flash_attention(q, k, v, causal=True), (q, k, v), (rng_dout,))
+    check(attn.flash_attention_backward.launches_by_route["wgmma"] == before["wgmma"] + 1,
+          f"{what}: the backward did not take the wgmma route")
     want = _vjp(torch, lambda q, k, v: attn.flash_attention_plain(q, k, v, causal=True),
                 [t.float() for t in (q, k, v)], (rng_dout,))
     errs = [_rel_l2(g, w) for g, w in zip(got, want)]
     check(all(g.dtype == q.dtype and bool(torch.isfinite(g).all()) for g in got), f"{what}: grads")
     check(max(errs) <= 3e-2, f"{what}: dq/dk/dv relative L2 {errs} > 3e-2")
-    out = attn.flash_attention_kernel(q, k, v, causal=True)
+    out, lse = attn.flash_attention_kernel(q, k, v, causal=True, with_lse=True)
     dout = rng_dout.to(q.dtype)
     fwd_ms = _time_ms(torch, lambda: attn.flash_attention_kernel(q, k, v, causal=True))
-    bwd_ms = _time_ms(torch, lambda: attn.flash_attention_bwd(q, k, v, out, dout, causal=True), reps=3)
+    fwd_lse_ms = _time_ms(torch, lambda: attn.flash_attention_kernel(q, k, v, causal=True, with_lse=True))
+    bwd_ms = _time_ms(torch, lambda: attn.flash_attention_backward(q, k, v, out, dout, lse, causal=True))
+    ops_ms = _time_ms(torch, lambda: attn.flash_attention_bwd(q, k, v, out, dout, causal=True), reps=3)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
 
     def sdpa():
@@ -4035,14 +4082,16 @@ def _flash_train_row(torch, q, k, v, what):
     bound, by = _bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
     fp32_bound, _ = _bound_ms(nbytes, flops, FP32_FLOPS)
     row = dict(shape=f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype).removeprefix('torch.')}",
-               grad_rel_l2=max(errs), forward_ms=fwd_ms, backward_ms=bwd_ms,
-               sdpa_fwd_bwd_ms=sdpa_ms, backward_bound_ms=bound, backward_bound_by=by,
+               grad_rel_l2=max(errs), forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms, backward_ms=bwd_ms,
+               torch_ops_backward_ms=ops_ms, sdpa_fwd_bwd_ms=sdpa_ms, backward_bound_ms=bound,
+               backward_bound_by=by, backward_share_of_bound=bound / bwd_ms,
                backward_fp32_bound_ms=fp32_bound, backward_tflops=flops / bwd_ms / 1e9)
     log(f"train kernels: #6 {what} {row['shape']}: gradient within 3e-2 of autograd through the plain "
-        f"version in float32 (dq, dk, dv {[round(e, 5) for e in errs]}); forward {fwd_ms:.3f} ms, "
-        f"flash_attention_bwd {bwd_ms:.3f} ms (float32 torch ops, {flops / bwd_ms / 1e9:.2f} TFLOP/s; "
-        f"bound {bound:.4f} ms by {by} at 989 TFLOP/s bf16, {fp32_bound:.4f} ms at 67 TFLOP/s fp32), "
-        f"SDPA forward + backward {sdpa_ms:.3f} ms")
+        f"version in float32 (dq, dk, dv {[round(e, 5) for e in errs]}); forward {fwd_ms:.3f} ms "
+        f"({fwd_lse_ms:.3f} with the logsumexp); backward on wgmma {bwd_ms:.3f} ms "
+        f"({flops / bwd_ms / 1e9:.2f} TFLOP/s, {100 * bound / bwd_ms:.1f}% of the bound {bound:.4f} ms "
+        f"by {by} at 989 TFLOP/s bf16), flash_attention_bwd {ops_ms:.3f} ms (float32 torch ops; "
+        f"{fp32_bound:.4f} ms at 67 TFLOP/s fp32), SDPA forward + backward {sdpa_ms:.3f} ms")
     return row
 
 
@@ -4101,14 +4150,16 @@ def _ssd_train_rows(torch, dev):
 
 
 def phase_train_kernels(torch, dev):
-    """#6 at zamba2's [2, 4096, 32, 80] and granite's [2, 4096, 32/8, 128]
-    (bfloat16, causal) and #7 at zamba2's [64, 128, 80, 64]: each autograd
-    op's gradient against autograd through the plain version, and times."""
+    """#6 at [2, 4096, 32, 80], granite's [2, 4096, 32/8, 128] and the
+    zamba2-train-4k cell's [2, 4096, 32, 160] (bfloat16, causal) and #7 at
+    zamba2's [64, 128, 80, 64]: each autograd op's gradient against
+    autograd through the plain version, and times."""
     import numpy as np
 
     rng = np.random.default_rng(2)
     flash = {}
-    for what, (H, KH, D) in (("zamba2-2.7b", (32, 32, 80)), ("granite-3-8b", (32, 8, 128))):
+    for what, (H, KH, D) in (("heads of 80", (32, 32, 80)), ("granite-3-8b", (32, 8, 128)),
+                             ("zamba2-2.7b", (32, 32, 160))):
         q, k, v = _bf16_normal(torch, dev, rng, (2, TRAIN_SEQ, H, D), (2, TRAIN_SEQ, KH, D),
                                (2, TRAIN_SEQ, KH, D))
         flash[what] = _flash_train_row(torch, q, k, v, what)
@@ -4202,12 +4253,14 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
     moments, lr 3e-4, warmup 1), the loss falling from step 1 to 3; then a
     step with 8-bit moments and EF compression.  Each step launches #6
     (9 + 9 recomputed) and #7 (54 + 54) a microbatch and runs each
-    backward once a launch's forward; every gradient leaf of a microbatch
+    backward once a launch's forward, #6's on its wgmma kernels (9 a
+    microbatch, 18 a step, none on torch ops); every gradient leaf of a microbatch
     at the initial weights is finite and nonzero; a fourth step is
     profiled (device activity); and the first group (6
     mamba layers and the shared block) at published widths: the kernel
     path's whole gradient within 5e-2 relative L2 of the plain path's."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as attn
     from repro_torch.models.model import init_params, param_count, units
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import (
@@ -4221,6 +4274,14 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
     per_mb = {"flash_attention_kernel": 2 * groups, "ssd_intra": 2 * cfg.num_layers}
     per_step = {k: TRAIN_ACCUM * v for k, v in per_mb.items()}
     bwd_mb = {k: v // 2 for k, v in per_mb.items()}
+    # #6's backward routes: every call on the wgmma kernels
+    bwd_routes_mb = {"wgmma": groups, "torch_ops": 0}
+    bwd_routes_step = {"wgmma": TRAIN_ACCUM * groups, "torch_ops": 0}
+
+    def bwd_routes(what, want):
+        got = dict(attn.flash_attention_backward.launches_by_route)
+        check(got == want, f"{tag}: {what}: #6's backward routes {got}, expected {want}")
+        return got
     parts = {}
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -4238,6 +4299,7 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
     check(not bad, f"{tag}: {len(bad)} of {len(flat)} gradient leaves not finite or all zero")
     check({k: counts[k] for k in per_mb} == per_mb, f"{tag}: a microbatch's launches {counts}")
     check(bwd == bwd_mb, f"{tag}: a microbatch's backward calls {bwd}, expected {bwd_mb}")
+    bwd_routes("a microbatch", bwd_routes_mb)
     n_leaves = len(flat)
     del grads, flat
     parts["microbatch grads"] = time.perf_counter() - t0
@@ -4256,6 +4318,7 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
         check(got == per_step, f"{tag}: step {i + 1} launches {got}, expected {per_step} "
               f"({TRAIN_ACCUM} microbatches x (forward + recompute))")
         step_counts = got
+        step_bwd_routes = bwd_routes(f"step {i + 1}", bwd_routes_step)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     check(all(math.isfinite(v) for v in losses) and losses[2] < losses[0],
           f"{tag}: losses {losses} did not fall from step 1 to step 3")
@@ -4275,6 +4338,7 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
     s8 = time.perf_counter() - t0
     check(math.isfinite(loss8), f"{tag}: the 8-bit + compression step's loss {loss8}")
     check({k: counts8[k] for k in per_step} == per_step, f"{tag}: 8-bit step launches {counts8}")
+    bwd_routes("the 8-bit step", bwd_routes_step)
     del state8
     torch.cuda.empty_cache()
     peak_all = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -4285,13 +4349,14 @@ def phase_train_full(torch, dev, arch="zamba2-2.7b"):
         f"units; 3 steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({TRAIN_ACCUM} microbatches): losses "
         f"{[round(v, 5) for v in losses]}, step seconds {[round(v, 3) for v in secs]} "
         f"({tokens / statistics.median(secs):.1f} tokens/s at the median), peak {peak:.2f} GiB "
-        f"(f32 moments); launches a step {step_counts}, backward calls a microbatch {bwd_mb}; the 8-bit + "
+        f"(f32 moments); launches a step {step_counts}, backward calls a microbatch {bwd_mb}, #6's backward "
+        f"routes a step {step_bwd_routes}; the 8-bit + "
         f"compression step: loss {loss8:.5f}, {s8:.3f} s; peak over all {peak_all:.2f} GiB; all "
         f"{n_leaves} gradient leaves of a microbatch at the initial weights finite and nonzero; seconds "
         f"{ {k: round(v, 2) for k, v in parts.items()} }")
-    return dict(per_step=per_step, losses=losses, step_s=secs, tokens_per_s=tokens / statistics.median(secs),
-                peak_gib=peak, peak_all_gib=peak_all, step8_s=s8, loss8=loss8, first_group=group,
-                seconds=parts)
+    return dict(per_step=per_step, bwd_routes_step=step_bwd_routes, losses=losses, step_s=secs,
+                tokens_per_s=tokens / statistics.median(secs), peak_gib=peak, peak_all_gib=peak_all,
+                step8_s=s8, loss8=loss8, first_group=group, seconds=parts)
 
 
 def _first_group_grads(torch, cfg, params, mb):
@@ -4381,12 +4446,15 @@ def phase_train(torch, dev, entries):
     for name, rows in (("flash_attention_kernel", flash_rows), ("ssd_intra", ssd_rows)):
         launches = {f"train small {a}": c[name] for a, c in small.items() if name in c}
         launches["zamba2-2.7b train step (2 microbatches, forward + recompute)"] = full["per_step"][name]
+        if name == "flash_attention_kernel":
+            for route, n in full["bwd_routes_step"].items():
+                launches[f"zamba2-2.7b train step, backward on {route}"] = n
         if name in example:
             launches["train example (16 steps)"] = example[name]
         check(sum(launches.values()) > 0, f"kernel {name} was launched on no training path")
         by_name[name]["launches_training"] = launches
         by_name[name]["training"] = rows
-    figures = {k: v for k, v in full.items() if k != "per_step"}
+    figures = {k: v for k, v in full.items() if k not in ("per_step", "bwd_routes_step")}
     log(json.dumps({"train_phase_s": seconds, "train_zamba2_full": figures}))
     return entries
 

@@ -1,5 +1,5 @@
-"""Flash attention: the Hopper forward kernels, their plain version and the
-gradient.
+"""Flash attention: the Hopper kernels, forward and backward, their plain
+versions and the gradient's route.
 
 Port of ``repro/kernels/attention/kernel.py::flash_attention_pallas``, the
 kernel the JAX package wrote to slot in behind
@@ -32,9 +32,23 @@ route's entry of ``flash_attention_kernel.launches_by_route``; an operand
 copied to meet a kernel's layout rules adds one to
 ``flash_attention_kernel.copies``.
 
-:func:`flash_attention_bwd` is the function's gradient in torch ops (the
-JAX package has no backward kernel: ``jax.grad`` of ``chunked_attention``
-is its gradient); ``ops.flash_attention`` pairs it with the forward.
+The gradient (the JAX package has no backward kernel: ``jax.grad`` of
+``chunked_attention`` is its gradient) takes one of two routes, by
+:func:`bwd_route`, through :func:`flash_attention_backward`:
+
+- ``"wgmma"``, exactly where the forward runs ``"wgmma"`` on CUDA:
+  ``kernels/csrc/flash_attention_bwd_sm90.cu``, hand-written bf16 kernels
+  (delta, then dK/dV a key tile a block, then dQ a query tile a block) on
+  the tensor cores.  They read the float32 logsumexp that the forward's
+  ``with_lse`` instantiation saves; p and ds are rounded to bfloat16 as
+  product operands (the forward's rounding of p), the softmax, delta and
+  every accumulator stay float32, and each output row is written by one
+  block (no atomics: two calls give the same bits).
+- ``"torch_ops"``, for float32, other head dims and CPU tensors:
+  :func:`flash_attention_bwd`, the gradient in float32 torch ops and the
+  kernels' plain version.
+
+``ops.flash_attention`` pairs them with the forward.
 """
 from __future__ import annotations
 
@@ -52,12 +66,18 @@ Q_CHUNK = KV_CHUNK = 1024
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-# route -> (csrc source, C launcher, its ctypes argument types)
+# the forward's routes, and "bwd" (the backward's "wgmma" kernels) ->
+# (csrc source, C launcher, its ctypes argument types)
 LAUNCHERS = {
     "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch",
-              _HEAD + [ctypes.c_int, ctypes.c_void_p]),
+              _HEAD + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "cuda_cores": ("flash_attention", "flash_attention_launch",
                    _HEAD + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    # q, k, v, out, dout, lse, delta, dq, dk, dv; B, Sq, Skv, H, KH, D; the
+    # (batch, sequence, head) strides of q, k, v, out, dout; causal; the stream
+    "bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90_launch",
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+            + [ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -222,30 +242,53 @@ def _launcher(path: str):
 
 
 def launch(path: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool) -> torch.Tensor:
+           causal: bool, lse: torch.Tensor | None = None) -> torch.Tensor:
     """Launch route ``path``'s kernel on CUDA operands it reads in place
-    (Skv >= 1) and return the output; raises if the launch fails.  Counts
-    nothing: :func:`flash_attention_kernel` is the entry point, this is its
-    last step (and how a comparison runs a route by name)."""
+    (Skv >= 1) and return the output; raises if the launch fails.  ``lse``
+    (``"wgmma"`` only): a float32 contiguous [B, H, Sq] that the kernel's
+    other instantiation fills with each row's logsumexp.  Counts nothing:
+    :func:`flash_attention_kernel` is the entry point, this is its last step
+    (and how a comparison runs a route by name)."""
     B, Sq, Skv, H, KH, D = check_operands(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    dtype = () if path == "wgmma" else (_DTYPES[q.dtype],)
+    if path == "wgmma":
+        last = (None if lse is None else lse.data_ptr(),)
+    elif lse is None:
+        last = (_DTYPES[q.dtype],)
+    else:
+        raise ValueError(f"only the wgmma route writes the logsumexp, not {path!r}")
     # the launcher runs on the thread's current card: make it the operands'
     with torch.cuda.device(q.device):
         err = _launcher(path)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, KH, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), *dtype, torch.cuda.current_stream(q.device).cuda_stream,
+            int(causal), *last, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, f"flash_attention_kernel ({path})")
     return out
 
 
+def _readable(path: str, ts, counter) -> list:
+    """``ts`` as route ``path``'s kernels read them: an operand that breaks
+    their layout rules is copied with ``.contiguous()``, one on ``counter``."""
+    ready = tma_ready if path == "wgmma" else (lambda t: t.stride(-1) == 1)
+    ops = []
+    for t in ts:
+        if not ready(t):
+            t = t.contiguous()
+            counter.copies += 1
+        ops.append(t)
+    return ops
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           causal: bool = True) -> torch.Tensor:
+                           causal: bool = True, with_lse: bool = False):
     """q [B,Sq,H,D], k/v [B,Skv,KH,D] (float32 or bfloat16) -> [B,Sq,H,D]
-    in q's dtype.
+    in q's dtype; with ``with_lse`` (the ``"wgmma"`` route only, the
+    forward of a call that records a gradient), ``(out, lse)`` with the
+    float32 [B, H, Sq] logsumexp of each row's scaled scores that
+    :func:`flash_attention_backward` reads.
 
     On CUDA tensors: launches the kernel :func:`route` names on the current
     stream, reading the operands through their batch/sequence/head strides.
@@ -257,23 +300,86 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, Sq, Skv, H, KH, D = check_operands(q, k, v)
     if not on_cuda(q):
+        if with_lse:
+            raise ValueError("the logsumexp comes from the wgmma kernel, not the plain version")
         return flash_attention_plain(q, k, v, causal=causal)
     path = route(q.dtype, D)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if q.numel() == 0 or Skv == 0:  # no keys: the plain version's acc / max(l, 1e-30) = 0
-        return torch.zeros((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    ready = tma_ready if path == "wgmma" else (lambda t: t.stride(-1) == 1)
-    ops = []
-    for t in (q, k, v):
-        if not ready(t):
-            t = t.contiguous()
-            flash_attention_kernel.copies += 1
-        ops.append(t)
-    out = launch(path, *ops, causal=causal)
+        out = torch.zeros((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        return (out, lse.fill_(NEG_INF)) if with_lse else out
+    out = launch(path, *_readable(path, (q, k, v), flash_attention_kernel), causal=causal, lse=lse)
     flash_attention_kernel.launches += 1
     flash_attention_kernel.launches_by_route[path] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
 flash_attention_kernel.copies = 0
+
+
+def bwd_route(dtype: torch.dtype, D: int, cuda: bool = True) -> str:
+    """The backward a call's gradient takes: ``"wgmma"``
+    (``kernels/csrc/flash_attention_bwd_sm90.cu``) exactly where the
+    forward runs ``"wgmma"`` (CUDA, bfloat16, D a multiple of 16 up to 256),
+    else ``"torch_ops"`` (:func:`flash_attention_bwd`: float32, other head
+    dims, CPU tensors)."""
+    return "wgmma" if cuda and route(dtype, D) == "wgmma" else "torch_ops"
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+               dout: torch.Tensor, lse: torch.Tensor, *, causal: bool):
+    """The ``"wgmma"`` backward's three kernels (delta, dK/dV, dQ) on CUDA
+    operands they read in place (Sq, Skv >= 1): ``(dq, dk, dv)`` in the
+    inputs' dtype.  Counts nothing; raises if the launch fails."""
+    B, Sq, Skv, H, KH, D = check_operands(q, k, v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk, dv = (torch.empty((B, Skv, KH, D), dtype=k.dtype, device=k.device) for _ in range(2))
+    with torch.cuda.device(q.device):
+        err = _launcher("bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Skv, H, KH, D,
+            *(st for t in (q, k, v, out, dout) for st in t.stride()[:3]),
+            int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, "flash_attention_backward (wgmma)")
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor | None, *, causal: bool = True):
+    """The gradient ``(dq, dk, dv)`` of a forward whose output is ``out``,
+    in the inputs' dtypes, by :func:`bwd_route`: on ``"wgmma"`` the
+    hand-written kernels (p and ds rounded to bfloat16 as product operands,
+    float32 softmax, delta and accumulators; one block writes each output
+    row, so two calls give the same bits), reading ``lse``, the forward's
+    logsumexp; on ``"torch_ops"`` :func:`flash_attention_bwd`, which needs
+    no ``lse``.  Each launch (or ``flash_attention_bwd`` call) adds one to
+    its route's entry of ``flash_attention_backward.launches_by_route``; an
+    empty call (no queries or no keys) launches nothing and counts nothing,
+    as the forward does; an operand copied for
+    TMA's layout rules adds one to ``flash_attention_backward.copies``."""
+    B, Sq, Skv, H, KH, D = check_operands(q, k, v)
+    path = bwd_route(q.dtype, D, on_cuda(q))
+    if path == "torch_ops":
+        grads = flash_attention_bwd(q, k, v, out, dout, causal=causal)
+    elif q.numel() == 0 or Skv == 0:  # out = 0 whatever q, k, v: every gradient is 0, nothing launched
+        return tuple(torch.zeros_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+    else:
+        if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+            raise ValueError(f"the wgmma backward reads the forward's float32 [B, H, Sq] logsumexp, "
+                             f"got {None if lse is None else (tuple(lse.shape), lse.dtype)}")
+        if out.shape != q.shape or dout.shape != q.shape:
+            raise ValueError(f"out and dout must be {tuple(q.shape)}, got {tuple(out.shape)}, "
+                             f"{tuple(dout.shape)}")
+        ops = _readable(path, (q, k, v, out, dout.to(q.dtype)), flash_attention_backward)
+        grads = launch_bwd(*ops, lse, causal=causal)
+    flash_attention_backward.launches_by_route[path] += 1
+    return grads
+
+
+flash_attention_backward.launches_by_route = {"wgmma": 0, "torch_ops": 0}
+flash_attention_backward.copies = 0

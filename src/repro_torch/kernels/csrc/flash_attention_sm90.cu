@@ -129,6 +129,7 @@ struct Params {
   int Sq, Skv, H, KH, D, causal;
   float scale;
   __nv_bfloat16* out;
+  float* lse;  // [B, H, Sq], written by the kLse instantiation only
 };
 
 // S[64 x BK] = Q K^T over KS k-steps of 16 columns (none over the zero
@@ -214,8 +215,11 @@ __device__ __forceinline__ void to_fragments(const float (&sc)[BK / 2], uint32_t
 
 // KS: k-steps of 16 columns in q . k (D / 16); NC: 64-column chunks of the
 // head dim (1 for D <= 64, 2 up to 128, 3 up to 192, 4 up to 256); NS:
-// stages of the k/v ring; keys per k/v tile from the Tile table.
-template <int KS, int NS, int NC = (KS + 3) / 4>
+// stages of the k/v ring; keys per k/v tile from the Tile table.  kLse: also
+// write each row's logsumexp m + log(max(l, 1e-30)) (natural log, the
+// scaled scores' units) to p.lse, for the backward (a forward that records
+// a gradient); without it the kernel is the serving path's.
+template <int KS, int NS, bool kLse, int NC = (KS + 3) / 4>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
@@ -326,6 +330,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row = r0 + 8 * r;
     if (row >= p.Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    if (kLse && lane % 4 == 0)  // m and l are the same in the 4 threads of a row
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] = m[r] + logf(den);
     __nv_bfloat16* orow =
         p.out + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * static_cast<long long>(p.D);
 #pragma unroll
@@ -341,12 +347,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 
-template <int KS>
+template <int KS, bool kLse>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const Params& p,
            int B, cudaStream_t stream) {
   constexpr int NC = (KS + 3) / 4, NS = Tile<NC>::NS;
   const int smem = 1024 + NC * kBQ * kRowBytes + NS * 2 * NC * Tile<NC>::BK * kRowBytes;
-  auto kernel = flash_fwd_sm90_kernel<KS, NS>;
+  auto kernel = flash_fwd_sm90_kernel<KS, NS, kLse>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -355,19 +361,43 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kLse>
+int launch_head_dim(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                    const Params& p, int B, cudaStream_t st) {
+  switch (p.D / 16) {
+    case 1: return launch<1, kLse>(qm, km, vm, p, B, st);
+    case 2: return launch<2, kLse>(qm, km, vm, p, B, st);
+    case 3: return launch<3, kLse>(qm, km, vm, p, B, st);
+    case 4: return launch<4, kLse>(qm, km, vm, p, B, st);
+    case 5: return launch<5, kLse>(qm, km, vm, p, B, st);
+    case 6: return launch<6, kLse>(qm, km, vm, p, B, st);
+    case 7: return launch<7, kLse>(qm, km, vm, p, B, st);
+    case 8: return launch<8, kLse>(qm, km, vm, p, B, st);
+    case 9: return launch<9, kLse>(qm, km, vm, p, B, st);
+    case 10: return launch<10, kLse>(qm, km, vm, p, B, st);
+    case 11: return launch<11, kLse>(qm, km, vm, p, B, st);
+    case 12: return launch<12, kLse>(qm, km, vm, p, B, st);
+    case 13: return launch<13, kLse>(qm, km, vm, p, B, st);
+    case 14: return launch<14, kLse>(qm, km, vm, p, B, st);
+    case 15: return launch<15, kLse>(qm, km, vm, p, B, st);
+    default: return launch<16, kLse>(qm, km, vm, p, B, st);
+  }
+}
+
 }  // namespace
 
 // Device pointers q, k, v (bfloat16), out (bfloat16, contiguous [B, Sq, H,
 // D]); element strides (batch, sequence, head) of q, k, v, the head dim
 // contiguous.  D a multiple of 16 up to 256, H a multiple of KH, the
 // pointers 16-byte aligned and the strides multiples of 8 elements (of the
-// dims longer than 1).  Launches on ``stream`` and returns 0, or the
-// cudaError_t of what failed (cudaErrorInvalidValue for operands the tensor
-// maps cannot describe).
+// dims longer than 1).  lse: null, or float32 contiguous [B, H, Sq] that
+// the kLse instantiation fills with each row's logsumexp.  Launches on
+// ``stream`` and returns 0, or the cudaError_t of what failed
+// (cudaErrorInvalidValue for operands the tensor maps cannot describe).
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H, int KH,
     int D, long long qb, long long qs, long long qh, long long kb, long long ks, long long kh,
-    long long vb, long long vs, long long vh, int causal, void* stream) {
+    long long vb, long long vs, long long vh, int causal, void* lse, void* stream) {
   if (D <= 0 || D > 256 || D % 16 != 0 || KH <= 0 || H % KH != 0) return 1;  // cudaErrorInvalidValue
   if (B <= 0 || Sq <= 0 || Skv <= 0) return 0;
   if ((Sq + kBQ - 1) / kBQ > 65535) return 1;  // grid.y
@@ -382,24 +412,8 @@ extern "C" int flash_attention_sm90_launch(
   // the scale as chunked_attention forms it: 1 / sqrt(D) in double, then float
   const Params p{Sq, Skv, H, KH, D, causal,
                  static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))),
-                 static_cast<__nv_bfloat16*>(out)};
+                 static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D / 16) {
-    case 1: return launch<1>(qm, km, vm, p, B, st);
-    case 2: return launch<2>(qm, km, vm, p, B, st);
-    case 3: return launch<3>(qm, km, vm, p, B, st);
-    case 4: return launch<4>(qm, km, vm, p, B, st);
-    case 5: return launch<5>(qm, km, vm, p, B, st);
-    case 6: return launch<6>(qm, km, vm, p, B, st);
-    case 7: return launch<7>(qm, km, vm, p, B, st);
-    case 8: return launch<8>(qm, km, vm, p, B, st);
-    case 9: return launch<9>(qm, km, vm, p, B, st);
-    case 10: return launch<10>(qm, km, vm, p, B, st);
-    case 11: return launch<11>(qm, km, vm, p, B, st);
-    case 12: return launch<12>(qm, km, vm, p, B, st);
-    case 13: return launch<13>(qm, km, vm, p, B, st);
-    case 14: return launch<14>(qm, km, vm, p, B, st);
-    case 15: return launch<15>(qm, km, vm, p, B, st);
-    default: return launch<16>(qm, km, vm, p, B, st);
-  }
+  return lse != nullptr ? launch_head_dim<true>(qm, km, vm, p, B, st)
+                        : launch_head_dim<false>(qm, km, vm, p, B, st);
 }

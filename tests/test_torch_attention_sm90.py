@@ -14,6 +14,13 @@ card's 3e-2 bfloat16 bar of the plain version at the smoke run's edge
 shapes, at a granite-like layer and at an MLA-like one (D 192, v zero past
 column 128), and match the JAX Pallas kernel (interpret mode, blocks of the
 kernel's key tile), which rounds ``p`` the same way.
+
+The backward (``kernels/csrc/flash_attention_bwd_sm90.cu``) is held the same
+way: its route rule (the forward's ``"wgmma"`` calls, else torch ops), its
+launcher's prototype, its tile table's shared memory, the forward saving
+the logsumexp only where that backward reads it, and a torch emulation of
+its arithmetic (p and ds rounded to bfloat16 as product operands) within
+the card's 3e-2 relative-L2 bar of the float32 gradient.
 """
 import ctypes
 import math
@@ -27,6 +34,7 @@ import torch
 from repro.kernels.attention import ops as j_attn_ops
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import kernel as t_attn
+from repro_torch.kernels.attention import ops as t_attn_ops
 
 BF16_ATOL = 3e-2
 
@@ -138,6 +146,17 @@ def test_launcher_prototype_matches_the_source(path, monkeypatch):
     assert argtypes[:4] == [ctypes.c_void_p] * 4 and argtypes[-1] is ctypes.c_void_p
 
 
+def test_backward_launcher_prototype_matches_the_source(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"loaded {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    source, symbol, argtypes = t_attn.LAUNCHERS["bwd"]
+    assert source in _build.sources()
+    assert argtypes == _c_signature(source, symbol)
+    assert argtypes[:10] == [ctypes.c_void_p] * 10 and argtypes[-1] is ctypes.c_void_p
+
+
 def _with_headers(source):
     """The text of ``csrc/<source>.cu`` and of the ``csrc`` headers it includes."""
     text = (_build.CSRC / f"{source}.cu").read_text()
@@ -153,6 +172,19 @@ def test_wgmma_source_uses_tensor_cores_and_tma():
         assert needle in text, needle
     assert "#include <torch" not in text and "#include <cutlass" not in text
     assert "-lcuda" not in _build.NVCC_FLAGS
+
+
+def test_backward_source_uses_tensor_cores_and_tma_under_backward_names():
+    """The backward runs on the tensor cores from TMA-fed tiles, and no
+    kernel of it is named like the forward (the benchmark files a kernel
+    whose name holds ``flash_fwd`` as forward attention work)."""
+    text = _with_headers("flash_attention_bwd_sm90")
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "const __grid_constant__ CUtensorMap"):
+        assert needle in text, needle
+    assert "#include <torch" not in text and "#include <cutlass" not in text
+    names = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", text)
+    assert sorted(names) == ["flash_bwd_delta_kernel", "flash_bwd_dkdv_sm90_kernel", "flash_bwd_dq_sm90_kernel"]
+    assert not any("flash_fwd" in n for n in names)
 
 
 # ---------------------------------------------------------------------------
@@ -282,3 +314,188 @@ def test_wgmma_numerics_match_the_pallas_kernel(B, S, H, KH, D):
     pallas = j_attn_ops.flash_attention(*as_jax, causal=True, blk_q=128, blk_k=blk)
     pallas = torch.from_numpy(np.array(jnp.asarray(pallas, jnp.float32)))
     assert _err(wgmma_numerics(q, k, v), pallas) <= BF16_ATOL
+
+
+# ---------------------------------------------------------------------------
+# the backward: its route, its tiles, the saved logsumexp, its numerics
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("D", [64, 80, 128, 160, 192, 256])
+def test_backward_route_bf16_head_dims_take_wgmma(D):
+    assert t_attn.bwd_route(torch.bfloat16, D) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,D,cuda", [(torch.float32, 64, True), (torch.float32, 160, True),
+                                          (torch.bfloat16, 72, True), (torch.bfloat16, 136, True),
+                                          (torch.bfloat16, 160, False), (torch.float32, 72, False),
+                                          (torch.bfloat16, 12, False)])
+def test_backward_route_other_cases_take_torch_ops(dtype, D, cuda):
+    """float32, head dims the forward's wgmma route does not take, and CPU
+    tensors (any head dim the plain version takes)."""
+    assert t_attn.bwd_route(dtype, D, cuda) == "torch_ops"
+
+
+def _dq_tile_table():
+    """``flash_attention_bwd_sm90.cu``'s DqTile table: {chunks: keys}."""
+    text = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    primary = re.search(r"struct DqTile \{\s*static constexpr int BK = (\d+);", text)
+    assert primary, "the DqTile table's primary template not found"
+    table = {nc: int(primary.group(1)) for nc in (1, 2, 3, 4)}
+    for nc, bk in re.findall(r"struct DqTile<(\d+)> \{\s*static constexpr int BK = (\d+);", text):
+        table[int(nc)] = int(bk)
+    return table
+
+
+def _bwd_constant(name):
+    text = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+def test_backward_tiles_fit_the_shared_memory_and_the_wgmma_shapes(nc):
+    """Both kernels' shared memory within the 232,448 bytes a block may use
+    (less their static barriers): dK/dV holds k, v, kNS stages of q and
+    dout (64-row tiles) and the P^T and dS^T tiles; dQ holds the 128-row q
+    and dout tiles and kNS stages of k and v.  The key tiles are what the
+    m64nNk16 shapes take, and the dK/dV step splits into two 32-query
+    halves."""
+    ns, keys, step, bq = (_bwd_constant(n) for n in ("kNS", "kKeys", "kQStep", "kBQ"))
+    bk = _dq_tile_table()[nc]
+    dkdv = 1024 + 2 * nc * keys * 128 + ns * 2 * nc * step * 128 + 2 * keys * 128
+    dq = 1024 + 2 * nc * bq * 128 + ns * 2 * nc * bk * 128
+    assert dkdv + 8 * (ns + 1) <= 232_448, dkdv
+    assert dq + 8 * (ns + 1) + 4 * ns <= 232_448, dq
+    assert keys == step == 64 and bq == 128 and bk in (32, 64) and ns >= 2
+
+
+def _bf16_grad_operands(B, S, H, KH, D, seed):
+    q, k, v = _bf16_operands(B, S, S, H, KH, D, seed)
+    dout = torch.as_tensor(np.random.default_rng(seed + 1).normal(size=(B, S, H, D)).astype(np.float32))
+    return q, k, v, dout
+
+
+def test_cpu_backward_takes_torch_ops_once_and_saves_no_logsumexp(monkeypatch):
+    """On CPU tensors the op's forward never asks for the logsumexp and its
+    backward calls ``flash_attention_bwd`` once, counted on ``"torch_ops"``."""
+    seen = {"with_lse": [], "bwd": 0}
+    real_fwd, real_bwd = t_attn.flash_attention_kernel, t_attn.flash_attention_bwd
+
+    def fwd(*a, with_lse=False, **kw):
+        seen["with_lse"].append(with_lse)
+        return real_fwd(*a, with_lse=with_lse, **kw)
+
+    def bwd(*a, **kw):
+        seen["bwd"] += 1
+        return real_bwd(*a, **kw)
+
+    monkeypatch.setattr(t_attn_ops, "flash_attention_kernel", fwd)
+    monkeypatch.setattr(t_attn, "flash_attention_bwd", bwd)
+    monkeypatch.setattr(t_attn.flash_attention_backward, "launches_by_route", {"wgmma": 0, "torch_ops": 0})
+    q, k, v, dout = _bf16_grad_operands(1, 40, 4, 2, 80, 3)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = t_attn_ops.flash_attention(*args, causal=True)
+    assert out.grad_fn.saved_tensors[4] is None
+    torch.autograd.grad(out, args, dout.to(out.dtype))
+    assert seen == {"with_lse": [False], "bwd": 1}
+    assert t_attn.flash_attention_backward.launches_by_route == {"wgmma": 0, "torch_ops": 1}
+
+
+@pytest.mark.parametrize("Sq,Skv", [(0, 16), (16, 0)])
+def test_empty_wgmma_backward_launches_and_counts_nothing(Sq, Skv, monkeypatch):
+    """A call on the ``"wgmma"`` route with no queries or no keys returns
+    zero gradients without a launch and, as the forward, counts nothing."""
+    def refuse(*a, **kw):
+        raise AssertionError("launched an empty backward")
+
+    monkeypatch.setattr(t_attn, "on_cuda", lambda t: True)
+    monkeypatch.setattr(t_attn, "launch_bwd", refuse)
+    monkeypatch.setattr(t_attn.flash_attention_backward, "launches_by_route", {"wgmma": 0, "torch_ops": 0})
+    q, k, v = _bf16_operands(1, Sq, Skv, 4, 2, 64, 0)
+    out, dout = torch.zeros_like(q), torch.ones_like(q)
+    assert t_attn.bwd_route(q.dtype, 64, t_attn.on_cuda(q)) == "wgmma"
+    grads = t_attn.flash_attention_backward(q, k, v, out, dout, None, causal=True)
+    for g, t in zip(grads, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype and not bool(g.any())
+    assert t_attn.flash_attention_backward.launches_by_route == {"wgmma": 0, "torch_ops": 0}
+
+
+def test_logsumexp_is_cuda_only():
+    q, k, v = _bf16_operands(1, 8, 8, 2, 2, 64, 0)
+    with pytest.raises(ValueError, match="logsumexp"):
+        t_attn.flash_attention_kernel(q, k, v, with_lse=True)
+
+
+def wgmma_bwd_numerics(q, k, v, dout, *, causal=True):
+    """Test-only emulation of ``flash_attention_bwd_sm90.cu``'s arithmetic
+    on the forward's output (:func:`wgmma_numerics`) and logsumexp: float32
+    scores of the bfloat16 operands, p = exp(s - lse) (0 under the causal
+    mask), delta = rowsum(dout * out), dp = dout v^T and ds = p (dp - delta)
+    in float32, p and ds rounded to bfloat16 as the operands of dv = p^T
+    dout, dk = ds^T q / sqrt(D) and dq = ds k / sqrt(D) (float32 sums, dk
+    and dv over the query heads of each kv head), each rounded once to
+    bfloat16."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    rep = H // KH
+    qf = q.float().reshape(B, Sq, KH, rep, D)
+    kf, vf = k.float(), v.float()
+    do = dout.to(torch.bfloat16).float().reshape(B, Sq, KH, rep, D)
+    out = wgmma_numerics(q, k, v, causal=causal).float().reshape(B, Sq, KH, rep, D)
+    scale = float(np.float32(1.0 / math.sqrt(D)))
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf) * scale
+    if causal:
+        s = torch.where(torch.tril(torch.ones(Sq, Skv, dtype=torch.bool)), s, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    delta = (do * out).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhrd,bkhd->bhrqk", do, vf) - delta[..., None])
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dv = torch.einsum("bhrqk,bqhrd->bkhd", pb, do)
+    dk = torch.einsum("bhrqk,bqhrd->bkhd", dsb, qf) * scale
+    dq = torch.einsum("bhrqk,bkhd->bqhrd", dsb, kf).reshape(B, Sq, H, D) * scale
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _plain_grads(q, k, v, dout, causal):
+    args = [t.float().requires_grad_() for t in (q, k, v)]
+    out = t_attn.flash_attention_plain(*args, causal=causal)
+    return torch.autograd.grad(out, args, dout.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("S,H,KH,D,causal", [(256, 4, 4, 160, True), (200, 4, 2, 128, False),
+                                             (130, 2, 2, 256, True), (97, 6, 3, 80, True)])
+def test_wgmma_backward_numerics_within_budget(S, H, KH, D, causal):
+    """The card test's bar (3e-2 relative L2 against the float32 gradient of
+    the plain version): the zamba2 cell's head dim, granite's GQA
+    non-causal, D 256 and a length no tile divides."""
+    q, k, v, dout = _bf16_grad_operands(1, S, H, KH, D, S + D)
+    got = wgmma_bwd_numerics(q, k, v, dout, causal=causal)
+    for name, g, w in zip("qkv", got, _plain_grads(q, k, v, dout, causal)):
+        assert _rel_l2(g, w) <= BF16_ATOL, (name, _rel_l2(g, w))
+
+
+def test_wgmma_backward_emulation_is_the_torch_ops_gradient_without_rounding():
+    """The emulation's formula, with p and ds left in float32, is
+    ``flash_attention_bwd``'s (the plain version's gradient) on the same
+    forward output."""
+    q, k, v, dout = _bf16_grad_operands(1, 96, 4, 2, 64, 7)
+    out = wgmma_numerics(q, k, v)
+    want = t_attn.flash_attention_bwd(q.float(), k.float(), v.float(), out.float(),
+                                      dout.to(torch.bfloat16).float(), causal=True)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = float(np.float32(1.0 / math.sqrt(64)))
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qf.reshape(1, 96, 2, 2, 64), kf) * scale
+    s = torch.where(torch.tril(torch.ones(96, 96, dtype=torch.bool)), s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    do = dout.to(torch.bfloat16).float().reshape(1, 96, 2, 2, 64)
+    delta = (do * out.float().reshape(1, 96, 2, 2, 64)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqhrd,bkhd->bhrqk", do, vf) - delta[..., None])
+    dv = torch.einsum("bhrqk,bqhrd->bkhd", p, do)
+    dk = torch.einsum("bhrqk,bqhrd->bkhd", ds, qf.reshape(1, 96, 2, 2, 64)) * scale
+    dq = torch.einsum("bhrqk,bkhd->bqhrd", ds, kf).reshape(1, 96, 4, 64) * scale
+    for g, w in zip((dq, dk, dv), want):
+        assert _rel_l2(g, w) <= 1e-5

@@ -22,15 +22,20 @@ stays within 1e-4 too, and 5e-2 under ``bf16_intra``, the bar of the
 reference's own bfloat16 mode); a reduced model served on the card
 against the same run on the CPU within 5e-2 in its logits (bfloat16
 activations, the reference's decode-vs-forward bar).  Training: both
-kernels' autograd ops (kernel forward, torch-ops backward) against autograd
-through the plain versions in float32 (3e-2 relative L2 for bfloat16
-attention; 1e-4 for the SSD step, its bfloat16 operands' gradients, which
+kernels' autograd ops (kernel forward; attention's hand-written bfloat16
+backward, p and ds rounded to bfloat16 as product operands, on the forward's
+tensor-core route and torch ops elsewhere; the SSD step's torch-ops
+backward) against autograd through the plain versions in float32 (3e-2
+relative L2 for bfloat16 attention, 1e-4 for float32; the forward's saved
+logsumexp within 1e-5 relative L2 of the plain one; 1e-4 for the SSD step, its bfloat16 operands' gradients, which
 the op and the scan each round once as the reference's autodiff does,
 within two bfloat16 roundings (2^-7), 5e-2 under ``bf16_intra``; dA, a sum of
 cancelling terms at a decay past 88, 1e-2), and a reduced model's
 gradients on the card, every leaf finite and nonzero, within 5e-2 of the
 CPU's.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +69,8 @@ def cuda():
     tkernel.lcs_kernel.launches_by_route = {"registers": 0, "shared": 0}
     tattn.flash_attention_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     tattn.flash_attention_kernel.copies = 0
+    tattn.flash_attention_backward.launches_by_route = {"wgmma": 0, "torch_ops": 0}
+    tattn.flash_attention_backward.copies = 0
     tssd.ssd_intra.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -726,10 +733,17 @@ def _vjp(fn, args, cots):
     ((2, 300, 8, 2, 128), torch.bfloat16, True, 3e-2),    # granite's GQA, ragged
     ((1, 256, 4, 4, 192), torch.bfloat16, False, 3e-2),   # MLA's head dim, wgmma (64-key tiles)
     ((2, 200, 4, 2, 64), torch.float32, True, 1e-4),      # float32, CUDA cores
+    ((2, 512, 8, 8, 160), torch.bfloat16, True, 3e-2),    # the zamba2-train-4k cell's heads
+    ((1, 256, 4, 2, 256), torch.bfloat16, True, 3e-2),    # D 256: 32-key tiles in dQ
+    ((2, 384, 8, 2, 128), torch.bfloat16, False, 3e-2),   # non-causal GQA
+    ((1, 333, 6, 3, 160), torch.bfloat16, True, 3e-2),    # a length no tile divides
+    ((2, 256, 8, 8, 96), torch.bfloat16, True, 3e-2),     # minicpm3's MLA (64 + 32)
+    ((1, 320, 8, 1, 112), torch.bfloat16, True, 3e-2),    # kimi-k2's heads, GQA 8:1
 ])
 def test_flash_attention_backward_on_the_card(cuda, shape, dtype, causal, tol):
-    """The autograd op's gradient (the kernel forward, ``flash_attention_bwd``)
-    against autograd through the plain version in float32, same inputs."""
+    """The autograd op's gradient (the kernel forward, the backward its
+    route names) against autograd through the plain version in float32, same
+    inputs."""
     from repro_torch.kernels.attention.ops import flash_attention
 
     B, S, H, KH, D = shape
@@ -741,11 +755,102 @@ def test_flash_attention_backward_on_the_card(cuda, shape, dtype, causal, tol):
         got = _vjp(lambda q, k, v: flash_attention(q, k, v, causal=causal), (q, k, v), (dout,))
     assert tattn.flash_attention_kernel.launches == 1
     assert (trace.calls(calls, "flash_attention.bwd"), trace.calls(calls, "ssd_intra.bwd")) == (1, 0)
+    wgmma = dtype == torch.bfloat16
+    assert tattn.flash_attention_backward.launches_by_route == {"wgmma": int(wgmma), "torch_ops": int(not wgmma)}
+    assert tattn.flash_attention_backward.copies == 0
     want = _vjp(lambda q, k, v: tattn.flash_attention_plain(q, k, v, causal=causal),
                 [t.float() for t in (q, k, v)], (dout,))
     for g, w in zip(got, want):
         assert g.dtype == dtype and bool(torch.isfinite(g).all())
         assert _rel_l2(g, w) <= tol, _rel_l2(g, w)
+
+
+def _bf16_card(cuda, rng, *shapes):
+    return [torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=cuda).to(torch.bfloat16)
+            for sh in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 128, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_forward_logsumexp(cuda, D, causal):
+    """The forward's ``kLse`` instantiation: the same output as the serving
+    instantiation, and each row's logsumexp of the float32 scaled scores
+    (the -1e30 causal fill) within 1e-5 relative L2."""
+    B, S, H, KH = 2, 300, 4, 2
+    q, k, v = _bf16_card(cuda, np.random.default_rng(D), (B, S, H, D), (B, S, KH, D), (B, S, KH, D))
+    out, lse = tattn.flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S) and lse.is_contiguous()
+    assert torch.equal(out, tattn.flash_attention_kernel(q, k, v, causal=causal))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(H // KH, dim=2)) / math.sqrt(D)
+    if causal:
+        s = torch.where(torch.tril(torch.ones(S, S, dtype=torch.bool, device=cuda)), s, -1e30)
+    want = torch.logsumexp(s, dim=-1)
+    assert _rel_l2(lse, want) <= 1e-5, _rel_l2(lse, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_forward_without_grad_takes_the_serving_instantiation(cuda, monkeypatch):
+    """A forward whose inputs need no gradient launches the kernel without
+    the logsumexp and saves nothing for a backward; one that records a
+    gradient launches the ``kLse`` one and saves its float32 [B, H, Sq]."""
+    from repro_torch.kernels.attention.ops import flash_attention
+
+    asked = []
+    real = tattn.launch
+
+    def spy(*a, lse=None, **kw):
+        asked.append(lse is not None)
+        return real(*a, lse=lse, **kw)
+
+    monkeypatch.setattr(tattn, "launch", spy)
+    q, k, v = _bf16_card(cuda, np.random.default_rng(5), (1, 256, 4, 160), (1, 256, 4, 160), (1, 256, 4, 160))
+    out = flash_attention(q, k, v)
+    assert asked == [False] and out.grad_fn is None
+    qg = q.clone().requires_grad_()
+    out = flash_attention(qg, k, v)
+    assert asked == [False, True]
+    lse = out.grad_fn.saved_tensors[4]
+    assert lse.dtype == torch.float32 and lse.shape == (1, 4, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, True), (100, 300, False), (300, 100, True),
+                                           (300, 100, False), (1, 65, False), (3, 65, True)])
+def test_flash_attention_wgmma_backward_ragged_and_strided(cuda, Sq, Skv, causal):
+    """The backward's kernels against ``flash_attention_bwd`` on the same
+    forward output, Sq and Skv apart, q/k/v views of one fused projection
+    (read in place, no copy): within the card's 3e-2 bar.  (A single causal
+    row sees one key, so its dq is 0 and only rounding noise: the short
+    causal case has three rows.)"""
+    B, H, KH, D = 2, 8, 2, 160
+    rng = np.random.default_rng(Sq + Skv)
+    (x,) = _bf16_card(cuda, rng, (B, max(Sq, Skv), (H + 2 * KH) * D))
+    q = x[:, :Sq, :H * D].view(B, Sq, H, D)
+    k = x[:, :Skv, H * D:(H + KH) * D].view(B, Skv, KH, D)
+    v = x[:, :Skv, (H + KH) * D:].view(B, Skv, KH, D)
+    (dout,) = _bf16_card(cuda, rng, (B, Sq, H, D))
+    out, lse = tattn.flash_attention_kernel(q, k, v, causal=causal, with_lse=True)
+    got = tattn.flash_attention_backward(q, k, v, out, dout, lse, causal=causal)
+    assert tattn.flash_attention_backward.launches_by_route == {"wgmma": 1, "torch_ops": 0}
+    assert tattn.flash_attention_backward.copies == 0 and tattn.flash_attention_kernel.copies == 0
+    want = tattn.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous() and bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= 3e-2, (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_backward_is_deterministic(cuda):
+    """One block writes each output row of dq, dk and dv (no atomics): two
+    calls give the same bits."""
+    B, S, H, KH, D = 2, 700, 8, 2, 160
+    q, k, v, dout = _bf16_card(cuda, np.random.default_rng(9), (B, S, H, D), (B, S, KH, D), (B, S, KH, D),
+                               (B, S, H, D))
+    out, lse = tattn.flash_attention_kernel(q, k, v, causal=True, with_lse=True)
+    first = tattn.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    second = tattn.flash_attention_backward(q, k, v, out, dout, lse, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -438,8 +438,8 @@ def test_shingle_device_combos_are_cached_per_shape():
 # the build
 # ---------------------------------------------------------------------------
 def test_build_lists_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
-    assert _build.sources() == ["flash_attention", "flash_attention_sm90", "fused_score",
-                                "fused_windowed_score", "lcs", "minhash", "shingle", "ssd_intra",
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd_sm90", "flash_attention_sm90",
+                                "fused_score", "fused_windowed_score", "lcs", "minhash", "shingle", "ssd_intra",
                                 "ssd_intra_sm90"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("PATH", str(tmp_path))

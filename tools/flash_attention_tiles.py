@@ -47,7 +47,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import _ptxas_by_kernel, _time_ms  # noqa: E402
+from chip_smoke import _ptxas_by_kernel, _template_args, _time_ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn  # noqa: E402
 
@@ -176,7 +176,7 @@ def main() -> int:
               + "; ".join(f"{k} {v.get('registers')} {v.get('spill_store_bytes')}"
                           + (" SERIALIZED" if v.get("serialized") else "")
                           for k, v in sorted(result["ptxas"][name].items(),
-                                             key=lambda kv: [int(x) for x in kv[0].split(",") if x.isdigit()]))
+                                             key=lambda kv: _template_args(kv[0])))
               + f"; built in {result['build_s'][name]:.2f} s", flush=True)
 
     rng = np.random.default_rng(0)
